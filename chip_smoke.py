@@ -9,22 +9,39 @@ It takes no arguments: the main path always runs at SCALE.
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-0. The card's name and power limit (nvidia-smi); build the CUDA kernels.
+0. The card's name and power limit (nvidia-smi), its integer and memory
+   peaks (for each kernel's bound); build the CUDA kernels.
 1. Each kernel against its plain PyTorch twin on the card, bit for bit:
-   small batches of adversarial lanes (same point, inverse pair, identity
-   on either side, widths that are no multiple of a block), then the
-   shapes the scale-20 main path gives it, timed (kernel and plain).
+   small batches of adversarial lanes (the lane plan of
+   tests/test_pallas.py: same point, inverse pair, identity on either side
+   and both, in a width that is no multiple of a block; K2 on it is also
+   the check of the complete-add TPU kernel it replaces), then the shapes
+   the scale-20 main path gives it, timed (kernel and plain).
 2. The pinned protocol transcript (tests/fixtures) reproduced on the card.
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
-   MSM of fourier_tpu.native on the same row.
+   MSM of fourier_tpu_torch.native on the same row.
 4. The main path: `python -m fourier_tpu_torch run --scale 20
    --machines-scale 1` in a subprocess, driven over HTTP through the
    whole worker and master flow; both worker proofs and the master proof
    must verify and a repeated commitment must come back identical.  The
    kernel launches are the server's own counts of that run.
+5. Files: `setup --generate-setup --generate-precompute` writes the
+   scale-20 setup and precompute files into a fresh directory of the
+   checkout (removed at the end); `run --setup-path --precompute-path`
+   serves from them through the same flow; a fixed row's commitment from
+   that server equals the one of an in-process backend that loads only
+   the setup file and regenerates its tables.
+6. Tableless: on that in-process backend, row 0 without its table commits
+   and opens to the tabled bytes (K1, K2, K4 over the tableless MSM); the
+   pinned transcript's rows (8 points each) without tables take msm_naive
+   (K3, K5, K2).
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The main path is phases 4 to 6, four paths: the in-memory server, the
+file-loaded server, the tableless MSM at T = 2^19 and msm_naive at scale
+4.  Launches are counted from 0 before each path and read after it, and
+reported per path.  The line before the last is the kernels' JSON record;
+the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 from __future__ import annotations
@@ -32,9 +49,11 @@ from __future__ import annotations
 import json
 import os
 import random
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -50,7 +69,23 @@ KERNEL_INFO = {
     "g1_add": ("fourier_tpu_torch/csrc/g1_add.cu", "fourier_tpu/ops/pallas_curve.py:470"),
     "g1_dbl": ("fourier_tpu_torch/csrc/g1_dbl.cu", "fourier_tpu/ops/pallas_curve.py:224"),
     "horner_2k": ("fourier_tpu_torch/csrc/horner_2k.cu", "fourier_tpu/ops/pallas_curve.py:255"),
+    "g1_madd": ("fourier_tpu_torch/csrc/g1_madd.cu", "fourier_tpu/ops/pallas_curve.py:198"),
 }
+
+# Work counts for the bounds.  A Montgomery product of 12-word Fp values
+# (CIOS) is 2 * 12 * 12 + 12 = 300 32-bit multiply-adds; a complete
+# Jacobian add spends 16 products, a mixed add 11 (its doubling branch 4 +
+# 7 as well), a doubling 7.  Bytes count each input read once and each
+# output written once, at what the function needs: 48 bytes per Fp
+# coordinate (the port's int64 limb layout moves 4x that), 1 per mask lane.
+MADS_PER_PRODUCT = 300
+PRODUCTS = {"add": 16, "madd": 11, "dbl": 7}
+COORD_BYTES = 48
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
+# 32-bit integer multiply-adds per clock and SM on compute capability 9.0
+# (the arithmetic-instruction throughput table of the CUDA C++ Programming
+# Guide); the peak is this x SMs x the card's maximum SM clock.
+IMAD_PER_CLOCK_PER_SM = 64
 
 
 class SmokeFailure(Exception):
@@ -109,6 +144,8 @@ def to_dev(p, device):
 # -- phase 0 ------------------------------------------------------------------------
 
 def phase0_card_and_build():
+    import torch
+
     from fourier_tpu_torch.ops import kernels
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,10 +153,25 @@ def phase0_card_and_build():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = IMAD_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    log(f"phase 0: int32 multiply-add peak {peak:.4e}/s ({sms} SMs x {mhz:.0f} MHz x "
+        f"{IMAD_PER_CLOCK_PER_SM}), memory {HBM_BYTES_PER_S:.3e} B/s")
     t0 = time.perf_counter()
     kernels.build()
     log(f"phase 0: kernels built in {time.perf_counter() - t0:.3f} s")
-    return card
+    return card, peak
+
+
+def bound(mads, nbytes, peak):
+    """(bound ms, what sets it): the larger of the operations at the
+    int32 peak and the bytes at the memory rate."""
+    t_ops, t_bytes = mads / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # -- phase 1 ------------------------------------------------------------------------
@@ -129,8 +181,8 @@ def _adversarial(device):
     incomplete formulas; every comparison is exact."""
     import torch
 
-    from fourier_tpu.constants import R
-    from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
+    from fourier_tpu_torch.constants import R
+    from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
     from fourier_tpu_torch.ops import curve as cv
     from fourier_tpu_torch.ops import kernels
     from fourier_tpu_torch.ops.msm_fused import pack_points
@@ -159,6 +211,15 @@ def _adversarial(device):
     check(cv.jac_to_int_points(got) == expect, "g1_add differs from refimpl")
     col = kernels.COUNTERS.collisions()["g1_add"] - before
     check(col == same, f"g1_add counted {col} doubling lanes, expected {same}")
+
+    # K5 on the same lanes, q affine with its infinity mask
+    before = kernels.COUNTERS.collisions()["g1_madd"]
+    got = kernels.g1_madd(p, q_aff)
+    plain = kernels.g1_madd_plain(to_dev(p, "cpu"), to_dev(q_aff, "cpu"))
+    check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "g1_madd differs from its twin")
+    check(cv.jac_to_int_points(got) == expect, "g1_madd differs from refimpl")
+    col = kernels.COUNTERS.collisions()["g1_madd"] - before
+    check(col == same, f"g1_madd counted {col} doubling lanes, expected {same}")
 
     got = kernels.g1_dbl(p, repeat=3)
     plain = kernels.g1_dbl_plain(to_dev(p, "cpu"), 3)
@@ -201,10 +262,11 @@ def _adversarial(device):
     check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "horner_2k differs from its twin")
 
 
-def _main_path_shapes(device):
+def _main_path_shapes(device, peak):
     """Kernel vs plain twin, exact and timed, at the shapes the main path
     gives each kernel: T = 2^(SCALE-1) points per row, c = the table's
-    window (16 at scale 20)."""
+    window (16 at scale 20); K5, which the scale-20 path does not run, at
+    T lanes.  Each result carries the kernel's bound on these inputs."""
     import torch
 
     from fourier_tpu_torch.models.piano import PianoPrecompute
@@ -229,8 +291,13 @@ def _main_path_shapes(device):
     kernels.accumulate(table, index, start, count)
     ms, got = cuda_ms(lambda: kernels.accumulate(table, index, start, count), 3)
     plain_ms, plain = cuda_ms(lambda: kernels.accumulate_plain(table, index, start, count), 1)
+    # no row here is at infinity: a run of k rows spends k - 1 mixed adds
+    adds = int((count.to(torch.int64).clamp(min=1) - 1).sum())
+    nbytes = (table.numel() + index.numel() + 2 * start.numel()) * 4 \
+        + 3 * COORD_BYTES * start.numel()
     results["accumulate"] = (max_abs_err(got, plain), ms, plain_ms,
-                             f"{rows} rows -> {start.shape[0]} slots")
+                             f"{rows} rows -> {start.shape[0]} slots",
+                             bound(adds * PRODUCTS["madd"] * MADS_PER_PRODUCT, nbytes, peak))
     del table, index, start, count, got, plain
 
     # K2: the widest level of the bucket-reduction trees
@@ -240,34 +307,53 @@ def _main_path_shapes(device):
     kernels.g1_add(p, q)
     ms, got = cuda_ms(lambda: kernels.g1_add(p, q), 20)
     plain_ms, plain = cuda_ms(lambda: kernels.g1_add_plain(p, q), 1)
-    results["g1_add"] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes")
+    finite = int(((p.z != 0).any(0) & (q.z != 0).any(0)).sum())
+    results["g1_add"] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes",
+                         bound(finite * PRODUCTS["add"] * MADS_PER_PRODUCT,
+                               9 * COORD_BYTES * n, peak))
 
     # K3: c doublings of a whole row between two table windows
     p = G1Jac(*(rand_fp(T, gen, device) for _ in range(3)))
     kernels.g1_dbl(p, c)
     ms, got = cuda_ms(lambda: kernels.g1_dbl(p, c), 5)
     plain_ms, plain = cuda_ms(lambda: kernels.g1_dbl_plain(p, c), 1)
-    results["g1_dbl"] = (max_abs_err(got, plain), ms, plain_ms, f"{T} lanes x {c}")
+    results["g1_dbl"] = (max_abs_err(got, plain), ms, plain_ms, f"{T} lanes x {c}",
+                         bound(T * c * PRODUCTS["dbl"] * MADS_PER_PRODUCT,
+                               6 * COORD_BYTES * T, peak))
+
+    # K5: T lanes of p + q, q affine with one lane in 64 at infinity
+    q_aff = G1Aff(rand_fp(T, gen, device), rand_fp(T, gen, device),
+                  torch.arange(T, device=device) % 64 == 0)
+    kernels.g1_madd(p, q_aff)
+    ms, got = cuda_ms(lambda: kernels.g1_madd(p, q_aff), 20)
+    plain_ms, plain = cuda_ms(lambda: kernels.g1_madd_plain(p, q_aff), 1)
+    finite = int(((p.z != 0).any(0) & ~q_aff.inf).sum())
+    results["g1_madd"] = (max_abs_err(got, plain), ms, plain_ms, f"{T} lanes",
+                          bound(finite * PRODUCTS["madd"] * MADS_PER_PRODUCT,
+                                8 * COORD_BYTES * T + T, peak))
+    del p, q_aff, got, plain
 
     # K4: the Horner combine, K = c terms of 64 residual lanes
     terms = G1Jac(*(rand_fp(c * 64, gen, device) for _ in range(3)))
     kernels.horner_2k(terms, 64)
     ms, got = cuda_ms(lambda: kernels.horner_2k(terms, 64), 20)
     plain_ms, plain = cuda_ms(lambda: kernels.horner_2k_plain(terms, 64), 1)
-    results["horner_2k"] = (max_abs_err(got, plain), ms, plain_ms, f"K={c} x 64 lanes")
+    results["horner_2k"] = (max_abs_err(got, plain), ms, plain_ms, f"K={c} x 64 lanes",
+                            bound((c - 1) * 64 * (PRODUCTS["dbl"] + PRODUCTS["add"])
+                                  * MADS_PER_PRODUCT, 3 * COORD_BYTES * 64 * (c + 1), peak))
     return results
 
 
-def phase1_kernels(device):
+def phase1_kernels(device, peak):
     from fourier_tpu_torch.ops import kernels
 
     _adversarial(device)
     log(f"phase 1: adversarial lanes exact; launches {kernels.COUNTERS.launches}, "
         f"doubling-branch lanes {kernels.COUNTERS.collisions()}")
-    results = _main_path_shapes(device)
-    for name, (err, ms, plain_ms, shape) in results.items():
+    results = _main_path_shapes(device, peak)
+    for name, (err, ms, plain_ms, shape, (bound_ms, bound_by)) in results.items():
         log(f"phase 1: {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"max_abs_err {err}")
+            f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err}")
         check(err == 0, f"{name} differs from its plain twin at main-path shapes")
     return results
 
@@ -275,9 +361,9 @@ def phase1_kernels(device):
 # -- phases 2 and 3 -------------------------------------------------------------------
 
 def phase2_transcript(device):
-    from fourier_tpu.refimpl.curve import g1_to_bytes
-    from fourier_tpu.refimpl.field import fr_to_bytes
-    from fourier_tpu.runtime import wire
+    from fourier_tpu_torch.refimpl.curve import g1_to_bytes
+    from fourier_tpu_torch.refimpl.field import fr_to_bytes
+    from fourier_tpu_torch.runtime import wire
     from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                                 PianoPrecompute, generate_trusted_setup)
 
@@ -317,8 +403,8 @@ def phase2_transcript(device):
 
 
 def phase3_oracle(device):
-    from fourier_tpu import native
-    from fourier_tpu.constants import R
+    from fourier_tpu_torch import native
+    from fourier_tpu_torch.constants import R
     from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                                 PianoPrecompute, generate_trusted_setup)
     from fourier_tpu_torch.ops import curve as cv
@@ -333,12 +419,10 @@ def phase3_oracle(device):
     row = [rng.randrange(R) for _ in range(fft.T)]
     got = b.worker_commit(0, row)
     points = cv.jac_to_int_points(cv.from_affine(settings.u_row(0)))
-    want = native.g1_msm(points, row)
-    check(want is not False, "fourier_tpu.native did not build: no host C++ MSM to hold "
-                             "the commit against")
-    check(got == want, "worker_commit at T=2^12 differs from fourier_tpu.native.g1_msm")
+    want = native.g1_msm(points, row)        # raises if g++ cannot build it
+    check(got == want, "worker_commit at T=2^12 differs from fourier_tpu_torch.native.g1_msm")
     log(f"phase 3: worker_commit at T=2^12 (c=11, signed digits) equals "
-        f"fourier_tpu.native.g1_msm ({time.perf_counter() - t0:.3f} s)")
+        f"fourier_tpu_torch.native.g1_msm ({time.perf_counter() - t0:.3f} s)")
 
 
 # -- phase 4 ------------------------------------------------------------------------
@@ -346,14 +430,15 @@ def phase3_oracle(device):
 class ServerProcess:
     """`python -m fourier_tpu_torch run` with its log lines collected."""
 
-    def __init__(self, port, device="cuda"):
+    def __init__(self, port, extra_args=(), env=None):
         self.lines = []
         self.launches = []
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "fourier_tpu_torch", "run", "--scale", str(SCALE),
              "--machines-scale", "1", "--host", "127.0.0.1", "--port", str(port),
-             "--device", device],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             "--device", "cuda", *extra_args],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=None if env is None else dict(os.environ, **env))
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
 
@@ -392,14 +477,29 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def phase4_main_path(card, device="cuda"):
-    from fourier_tpu.runtime import wire
+def _log_seconds(lines, what):
+    """The seconds of a `... took X s` (or `Xs`) log line, or None."""
+    for ln in lines:
+        if what in ln and " took " in ln:
+            return float(ln.split(" took ", 1)[1].split()[0].rstrip("s"))
+    return None
+
+
+def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
+                 setup_kernels=("accumulate", "g1_dbl")):
+    """Start a scale-20 server, drive the worker and master flow over HTTP
+    (every proof must verify, a repeated commitment must repeat) and stop
+    it.  Returns (launch totals of the run, the server's setup seconds,
+    its log lines, the commitment of `fixed_row` (wire strings) at i = 0
+    or None).  `setup_kernels` must have run during the server's setup."""
+    from fourier_tpu_torch.runtime import wire
 
     port = _free_port()
     url = f"http://127.0.0.1:{port}/"
     t0 = time.perf_counter()
-    server = ServerProcess(port, device)
+    server = ServerProcess(port, extra_args, env)
     timings = []
+    fixed_com = None
 
     def rpc(method, params=None, expect_device=False):
         n_before = len(server.launches)
@@ -418,17 +518,22 @@ def phase4_main_path(card, device="cuda"):
                             f"the launch counts of {method}")
             launches = server.launches[-1]["launches"]
         timings.append((method, dt, launches))
-        log(f"phase 4: {method} {dt * 1000:.3f} ms" +
+        log(f"{label}: {method} {dt * 1000:.3f} ms" +
             (f" launches {launches}" if launches is not None else ""))
         return out, launches
 
     try:
-        server.wait_for(lambda: any(ln.endswith("Serving") for ln in server.lines), 1000,
+        server.wait_for(lambda: any(ln.endswith("Serving") for ln in server.lines), 900,
                         "the server to finish setup")
         boot = time.perf_counter() - t0
         setup_line = next(ln for ln in server.lines if "setup took" in ln)
-        log(f"phase 4: server serving after {boot:.3f} s (process start, setup, kernel "
+        log(f"{label}: server serving after {boot:.3f} s (process start, setup, kernel "
             f"build, warm-up commit); {setup_line.split('INFO fourier_tpu: ')[-1]}; {card}")
+        setup_launches = server.launches[0]["launches"]
+        log(f"{label}: launches at server setup {setup_launches}, at the warm-up commit "
+            f"{server.launches[1]['launches']}")
+        for k in setup_kernels:
+            check(setup_launches[k] > 0, f"{label}: the server's setup ran no {k} kernel")
         rpc("ping")
         poly = rpc("randomPoly")[0]["poly"]
         alpha = rpc("randomPoint")[0]["point"]
@@ -455,17 +560,160 @@ def phase4_main_path(card, device="cuda"):
         check(ok["valid"] is True, "master proof rejected")
         again = rpc("workerCommit", {"i": 0, "poly": rows[0]}, True)[0]["commitment"]
         check(again == coms[0], "a repeated workerCommit returned other bytes")
+        if fixed_row is not None:
+            fixed_com = rpc("workerCommit", {"i": 0, "poly": fixed_row}, True)[0]["commitment"]
     finally:
         server.stop()
     totals = dict.fromkeys(KERNEL_INFO, 0)
     for rec in server.launches:
         for k, v in rec["launches"].items():
             totals[k] += v
-    log(f"phase 4: main path at scale {SCALE} / machines 1 served and verified; "
-        f"kernel launches {totals}")
-    for k, v in totals.items():
-        check(v > 0, f"the main path launched no {k} kernel")
-    return totals
+    log(f"{label}: scale {SCALE} / machines 1 served and verified; kernel launches {totals}")
+    return totals, _log_seconds(server.lines, "setup took"), server.lines, fixed_com
+
+
+def phase4_main_path(card):
+    totals, setup_s, _, _ = drive_server("phase 4", card)
+    for k in ("accumulate", "g1_add", "g1_dbl", "horner_2k"):
+        check(totals[k] > 0, f"the main path launched no {k} kernel")
+    return totals, setup_s
+
+
+# -- phases 5 and 6 -------------------------------------------------------------------
+
+def _fixed_row(T):
+    """A fixed row of T canonical scalars: (int64 [16, T] limbs, wire strings)."""
+    import numpy as np
+
+    from fourier_tpu_torch.runtime.server import _enc_fr_batch
+
+    rng = np.random.default_rng(5)
+    limbs = rng.integers(0, 1 << 16, size=(16, T), dtype=np.int64)
+    limbs[15] = rng.integers(0, 0x73ED, size=T)      # below r's top limb: canonical
+    return limbs, _enc_fr_batch(limbs)
+
+
+def phase5_files(card, setup_in_memory_s):
+    """Setup and precompute files at the full scale: written by `setup`,
+    served by `run`, held against tables regenerated from the setup file."""
+    import torch
+
+    from fourier_tpu_torch.models.piano import PianoBackend, SetupConfig
+    from fourier_tpu_torch.ops.kernels import COUNTERS
+    from fourier_tpu_torch.refimpl.curve import g1_to_bytes
+    from fourier_tpu_torch.runtime import io as rio
+    from fourier_tpu_torch.runtime import wire
+
+    T = 1 << (SCALE - 1)
+    d = tempfile.mkdtemp(prefix=".smoke-files-", dir=ROOT)
+    try:
+        setup_path, pre_path = os.path.join(d, "setup"), os.path.join(d, "precompute")
+        log(f"phase 5: free disk {shutil.disk_usage(d).free / 1e9:.3f} GB before writing "
+            f"(expected: setup file ~{(3 * T + 2) * 48 / 1e6:.0f} MB, precompute file "
+            f"~{2 * 16 * T * 193 / 1e9:.2f} GB)")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "fourier_tpu_torch", "setup", "--scale", str(SCALE),
+             "--machines-scale", "1", "--setup-path", setup_path, "--precompute-path",
+             pre_path, "--generate-setup", "--generate-precompute"],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        check(res.returncode == 0, f"`setup` exited {res.returncode}:\n{res.stderr[-4000:]}")
+        log(f"phase 5: `setup` wrote {os.path.getsize(setup_path)} B of setup file and "
+            f"{os.path.getsize(pre_path)} B of precompute file in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        limbs, row_strs = _fixed_row(T)
+        totals, setup_s, lines, served = drive_server(
+            "phase 5", card, ["--setup-path", setup_path, "--precompute-path", pre_path],
+            env={"FOURIER_LOG": "debug"}, fixed_row=row_strs, setup_kernels=())
+        for k in ("accumulate", "g1_add", "horner_2k"):
+            check(totals[k] > 0, f"the file-loaded server launched no {k} kernel")
+        log(f"phase 5: server setup from files {setup_s:.3f} s (reading the setup file "
+            f"{_log_seconds(lines, 'Reading trusted setup'):.3f} s, loading the "
+            f"precompute file {_log_seconds(lines, 'Loading Precomputations'):.3f} s) vs "
+            f"{setup_in_memory_s:.3f} s generated in memory (phase 4); {card}")
+
+        t0 = time.perf_counter()
+        COUNTERS.reset()
+        b = PianoBackend.setup(SetupConfig(scale=SCALE, machines_scale=1, setup_path=setup_path,
+                                           generate_setup=False), "cuda")
+        torch.cuda.synchronize()
+        log(f"phase 5: in-process backend from the setup file alone, tables regenerated, "
+            f"in {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        rio.load_setup(setup_path, True, "cuda")
+        torch.cuda.synchronize()
+        log(f"phase 5: load_setup alone (decompressing {3 * T + 2} points on the card) "
+            f"{time.perf_counter() - t0:.3f} s; {card}")
+        local = wire.b64_encode(g1_to_bytes(b.worker_commit(0, limbs)))
+        check(served == local, "the file-loaded server's commitment differs from the one "
+                               "of tables regenerated from the setup file")
+        log("phase 5: loaded tables commit like regenerated ones (byte for byte)")
+        return totals, b, limbs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase6_tableless(b, limbs):
+    """Row 0 without its table (tableless msm at T = 2^(SCALE-1)) must give
+    the tabled bytes; the pinned transcript's 8-point rows without tables
+    take msm_naive."""
+    import torch
+
+    from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
+                                                generate_trusted_setup)
+    from fourier_tpu_torch.ops.kernels import COUNTERS
+    from fourier_tpu_torch.refimpl.curve import g1_to_bytes
+    from fourier_tpu_torch.refimpl.field import fr_to_bytes
+    from fourier_tpu_torch.runtime import wire
+
+    alpha = 0x1234567890ABCDEF
+
+    def commit_open(label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        com = b.worker_commit(0, limbs)
+        t1 = time.perf_counter()
+        y, pi = b.worker_open(0, limbs, alpha)
+        t2 = time.perf_counter()
+        log(f"phase 6: {label} worker_commit {(t1 - t0) * 1e3:.3f} ms, worker_open "
+            f"{(t2 - t1) * 1e3:.3f} ms (in process, T = {limbs.shape[1]})")
+        return g1_to_bytes(com), fr_to_bytes(y), g1_to_bytes(pi)
+
+    commit_open("tabled (warm-up)")
+    tabled = commit_open("tabled")
+    table = b.settings.precompute.u_rows[0]
+    b.settings.precompute.u_rows[0] = None
+    try:
+        COUNTERS.reset()
+        tableless = commit_open("tableless")
+        big = dict(COUNTERS.launches)
+    finally:
+        b.settings.precompute.u_rows[0] = table
+    check(tableless == tabled, "tableless commit/open differs from the tabled bytes")
+    for k in ("accumulate", "g1_add", "horner_2k"):
+        check(big[k] > 0, f"the tableless MSM launched no {k} kernel")
+    log(f"phase 6: tableless equals tabled at T = {limbs.shape[1]}; launches {big}")
+
+    with open(FIXTURE) as fh:
+        fx = json.load(fh)
+    fft = PianoFFTSettings(fx["scale"], fx["machines_scale"], "cuda")
+    settings = generate_trusted_setup(fft, tuple(bytes.fromhex(h) for h in fx["secrets_hex"]))
+    small = PianoBackend(fft, settings)                  # no precompute: every row tableless
+    COUNTERS.reset()
+    for i, row in enumerate(fx["rows"]):
+        com = small.worker_commit(i, row)
+        y, pi = small.worker_open(i, row, fx["alpha"])
+        check(wire.b64_encode(g1_to_bytes(com)) == fx["commitments"][i]
+              and wire.b64_encode(fr_to_bytes(y)) == fx["evals"][i]
+              and wire.b64_encode(g1_to_bytes(pi)) == fx["proofs"][i],
+              f"tableless transcript row {i}")
+    naive = dict(COUNTERS.launches)
+    for k in ("g1_madd", "g1_dbl", "g1_add"):
+        check(naive[k] > 0, f"msm_naive launched no {k} kernel")
+    log(f"phase 6: the pinned transcript's rows commit and open tableless (msm_naive); "
+        f"launches {naive}")
+    return big, naive
 
 
 def main() -> int:
@@ -479,20 +727,46 @@ def main() -> int:
               "beside it)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{name} took {time.perf_counter() - t0:.3f} s")
+        return out
+
     try:
-        card = phase0_card_and_build()
-        results = phase1_kernels("cuda")
-        phase2_transcript("cuda")
-        phase3_oracle("cuda")
+        card, peak = timed_phase("phase 0", phase0_card_and_build)
+        results = timed_phase("phase 1", phase1_kernels, "cuda", peak)
+        timed_phase("phase 2", phase2_transcript, "cuda")
+        timed_phase("phase 3", phase3_oracle, "cuda")
         torch.cuda.empty_cache()
-        launches = phase4_main_path(card)
-        check("jax" not in sys.modules, "the port imported jax")
+        served, setup_s = timed_phase("phase 4", phase4_main_path, card)
+        from_files, backend, limbs = timed_phase("phase 5", phase5_files, card, setup_s)
+        tableless, naive = timed_phase("phase 6", phase6_tableless, backend, limbs)
+        del backend
+        check(not any(m == "jax" or m.startswith("jax.") or m == "fourier_tpu"
+                      or m.startswith("fourier_tpu.") for m in sys.modules),
+              "the port imported jax or the JAX package")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    paths = {"server_in_memory_s20": served, "server_from_files_s20": from_files,
+             "tableless_T2^19": tableless, "msm_naive_s4": naive}
+    for path, counts in paths.items():
+        log(f"launches on path {path}: {dict((k, counts[k]) for k in KERNEL_INFO)}")
+    log(f"whole run {time.perf_counter() - t_start:.3f} s")
+    # `launches` is the count on the first path (in the order above) that
+    # runs the kernel, named by `launches_path`; every path's own count is
+    # in `launches_by_path`.
+    first = {k: next(p for p, c in paths.items() if c[k] > 0) for k in KERNEL_INFO}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": results[name][0],
-                "ms": results[name][1], "plain_ms": results[name][2]}
+                "launches": paths[first[name]][name], "launches_path": first[name],
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "max_abs_err": results[name][0],
+                "ms": results[name][1], "plain_ms": results[name][2],
+                "bound_ms": results[name][4][0], "bound_by": results[name][4][1],
+                "library_ms": None}
                for name, (src, rep) in KERNEL_INFO.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

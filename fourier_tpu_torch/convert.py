@@ -18,7 +18,7 @@ from .models.piano import PianoPrecompute, PianoSettings
 from .ops.curve import G1Aff
 
 
-def affine_from_arrays(points, device="cpu") -> G1Aff:
+def affine_from_arrays(points, device="cuda") -> G1Aff:
     """(x, y, inf) array-likes -> a G1Aff of int64 limb tensors."""
     return G1Aff(
         torch.as_tensor(np.asarray(points.x).astype(np.int64), device=device),
@@ -27,7 +27,7 @@ def affine_from_arrays(points, device="cpu") -> G1Aff:
     )
 
 
-def precompute_from_arrays(src, device="cpu") -> PianoPrecompute:
+def precompute_from_arrays(src, device="cuda") -> PianoPrecompute:
     """The U row tables; the reference's tau_Y table has no counterpart."""
     def table(t):
         return None if t is None else affine_from_arrays(t, device)
@@ -35,7 +35,7 @@ def precompute_from_arrays(src, device="cpu") -> PianoPrecompute:
     return PianoPrecompute(c=int(src.c), u_rows=[table(t) for t in src.u_rows])
 
 
-def settings_from_arrays(src, device="cpu") -> PianoSettings:
+def settings_from_arrays(src, device="cuda") -> PianoSettings:
     return PianoSettings(
         g=src.g,
         g_tau_x=affine_from_arrays(src.g_tau_x, device),

@@ -6,12 +6,11 @@ worker i commits and opens its row with one BGMW MSM against U row i's
 precomputed window table, the master aggregates on the host.  The
 opening quotient is built in evaluation form (barycentric y, then
 q(w^j) = (y - f_j) / (alpha - w^j)), as in the reference.  Verify and
-the master role run the shared host code (``fourier_tpu.refimpl`` and
-``fourier_tpu.native``).
-
-Not ported yet: setup and precompute files (``runtime/io.py``) and the
-tableless MSM, which serves a row only when precompute is off or its
-table would exceed MAX_TABLE_POINTS.
+the master role run on the host (the port's ``refimpl`` and ``native``).
+A row without a table (its table would pass MAX_TABLE_POINTS, or a
+precompute file carries none for it) serves through the tableless MSM.
+The SRS and the tables come from setup and precompute files
+(``runtime/io.py``) or are generated in memory.
 """
 
 from __future__ import annotations
@@ -24,13 +23,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from fourier_tpu.constants import FR_LIMBS, R, root_of_unity
-from fourier_tpu.ops.limbs import bytes_be_to_limbs, ints_to_vec, vec_to_int, vec_to_ints
-from fourier_tpu.refimpl import curve as rc
-from fourier_tpu.refimpl import pairing as rp
-from fourier_tpu.refimpl import poly as rpoly
-from fourier_tpu.refimpl.field import hash_to_bls_field
-from fourier_tpu.utils.timing import timed
+from ..constants import FR_LIMBS, R, root_of_unity
+from ..ops.limbs import bytes_be_to_limbs, ints_to_vec, vec_to_int, vec_to_ints
+from ..refimpl import curve as rc
+from ..refimpl import pairing as rp
+from ..refimpl import poly as rpoly
+from ..refimpl.field import hash_to_bls_field
+from ..utils.timing import timed
 
 from ..ops import curve as cv
 from ..ops import msm as msm_mod
@@ -38,6 +37,7 @@ from ..ops import msm_fused as mf
 from ..ops.curve import G1Aff, G1Jac
 from ..ops.field import FR, batch_inverse_host
 from ..ops.ntt import get_domain
+from ..runtime import io as rio
 
 logger = logging.getLogger("fourier_tpu")
 
@@ -52,19 +52,25 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 @dataclass
 class SetupConfig:
-    """The deployment's size: N = 2^scale coefficients over M = 2^machines_scale
-    workers.  The SRS and tables are generated in memory (files are not
-    ported yet)."""
+    """The deployment's size (N = 2^scale coefficients over M =
+    2^machines_scale workers) and where its SRS and tables come from.  As
+    in the reference (config.rs:174-200), a part that is not generated is
+    loaded from its path."""
 
     scale: int = 20
     machines_scale: int = 1
+    setup_path: str | None = None
+    precompute_path: str | None = None
+    compressed: bool = True
+    generate_setup: bool = True
+    generate_precompute: bool = True
 
 
 class PianoFFTSettings:
     """Two radix-2 domains: `left` of size T = 2^(n-m) (X), `right` of
     size M = 2^m (Y)."""
 
-    def __init__(self, n: int, m: int, device="cpu"):
+    def __init__(self, n: int, m: int, device="cuda"):
         if m > n:
             raise ValueError("m must be less than or equal to n")
         self.n = n
@@ -149,16 +155,17 @@ class PianoPrecompute:
     accumulate into one set of buckets (ops.msm_fused.msm_fused_bgmw).
     The packed row form the K1 kernel reads is made once per table.
 
-    Only the U rows have tables: the reference's tau_Y table serves its
-    setup files alone (runtime/io.py, not ported); the master opens
-    against the host points in PianoSettings.g_tau_y_host."""
+    Only the U rows have tables: the master opens against the host points
+    in PianoSettings.g_tau_y_host, so the reference's tau_Y table has no
+    reader here (precompute files skip it).  A row whose table is None
+    serves tableless."""
 
     c: int
     u_rows: list                   # per-row G1Aff [L, W*T] or None
     _packed: dict = field(default_factory=dict, repr=False)
 
-    # A table is W*n points x 96 B; past this many points a row would
-    # serve tableless, which is not ported yet.
+    # A table is W*n points x 96 B; past this many points a row serves
+    # tableless.
     MAX_TABLE_POINTS = 1 << 25
 
     @staticmethod
@@ -180,7 +187,7 @@ class PianoPrecompute:
             if n * n_windows > PianoPrecompute.MAX_TABLE_POINTS:
                 logger.warning(
                     "precompute: table of %d points (%d windows x %d) exceeds "
-                    "MAX_TABLE_POINTS=%d; this row has no table",
+                    "MAX_TABLE_POINTS=%d; this row serves tableless",
                     n * n_windows, n_windows, n, PianoPrecompute.MAX_TABLE_POINTS)
                 return None
             return msm_mod.bgmw_expand(points, c)
@@ -194,14 +201,18 @@ class PianoPrecompute:
         return self._packed[i]
 
 
-def _msm_dispatch(precompute: PianoPrecompute | None, i: int, scalars) -> G1Jac:
-    """MSM of row i's scalars against U row i's BGMW table: the
-    single-device tabled branch of the reference.  A row without a table
-    (precompute off, or past MAX_TABLE_POINTS) needs the tableless MSM."""
+def _msm_dispatch(settings: PianoSettings, i: int, scalars) -> G1Jac:
+    """MSM of row i's scalars against U row i, the single-device branches
+    of the reference: the BGMW table where the row has one, else the
+    tableless MSM (msm_naive up to 64 points)."""
+    precompute = settings.precompute
     table = None if precompute is None else precompute.u_rows[i]
-    if table is None:
-        raise NotImplementedError("tableless MSM not yet ported")
-    return mf.msm_fused_bgmw(precompute.packed_row(i), table.inf, scalars, precompute.c)
+    if table is not None:
+        return mf.msm_fused_bgmw(precompute.packed_row(i), table.inf, scalars, precompute.c)
+    points = settings.u_row(i)
+    if points.x.shape[-1] <= 64:
+        return msm_mod.msm_naive(points, scalars)
+    return msm_mod.msm(points, scalars)
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +377,7 @@ class PianoBackend:
     # -- protocol: worker side ---------------------------------------------------
 
     def _row_msm(self, i: int, scalars) -> tuple:
-        out = _msm_dispatch(self.settings.precompute, i, scalars)
+        out = _msm_dispatch(self.settings, i, scalars)
         return cv.jac_to_int_points(_lift(out))[0]
 
     def worker_commit(self, i: int, coeffs):
@@ -435,15 +446,34 @@ class PianoBackend:
     # -- construction ------------------------------------------------------------
 
     @staticmethod
-    def setup(cfg: SetupConfig, device="cpu") -> "PianoBackend":
-        """Generate the SRS and the window tables in memory."""
+    def setup(cfg: SetupConfig, device="cuda") -> "PianoBackend":
+        """The SRS and the window tables, each generated in memory or
+        loaded from its file (the reference's piano.rs:87-122)."""
         fft = PianoFFTSettings(cfg.scale, cfg.machines_scale, device)
-        secrets = (py_secrets.token_bytes(32), py_secrets.token_bytes(32))
-        settings = timed("Generating Trusted Setup",
-                         lambda: generate_trusted_setup(fft, secrets))
-        settings.precompute = timed("Generating Precomputations",
-                                    lambda: PianoPrecompute.generate(settings))
+        if cfg.generate_setup:
+            secrets = (py_secrets.token_bytes(32), py_secrets.token_bytes(32))
+            settings = timed("Generating Trusted Setup",
+                             lambda: generate_trusted_setup(fft, secrets))
+        else:
+            settings = timed("Reading trusted setup from file",
+                             lambda: rio.load_setup(cfg.setup_path, cfg.compressed, device))
+        if cfg.generate_precompute:
+            settings.precompute = timed("Generating Precomputations",
+                                        lambda: PianoPrecompute.generate(settings))
+        else:
+            settings.precompute = timed("Loading Precomputations from file",
+                                        lambda: rio.load_precompute(cfg.precompute_path, device))
         return PianoBackend(fft, settings, device)
+
+    @staticmethod
+    def setup_and_save(cfg: SetupConfig, device="cuda") -> "PianoBackend":
+        """setup, then write the SRS and the tables to the paths given."""
+        backend = PianoBackend.setup(cfg, device)
+        if cfg.setup_path:
+            rio.save_setup(backend.settings, cfg.setup_path, cfg.compressed)
+        if cfg.precompute_path:
+            rio.save_precompute(backend.settings.precompute, cfg.precompute_path)
+        return backend
 
 
 def _lift(p: G1Jac) -> G1Jac:

@@ -15,8 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from fourier_tpu.constants import FP_LIMBS
-from fourier_tpu.ops.limbs import ints_to_vec, vec_to_ints
+from ..constants import FP_LIMBS
+from .limbs import ints_to_vec, vec_to_ints
 
 from .field import FP
 
@@ -184,9 +184,9 @@ def jac_to_int_points(p: G1Jac) -> list:
 # -- kernel dispatch ------------------------------------------------------------
 
 def madd_fast(p: G1Jac, q: G1Aff) -> G1Jac:
-    """madd as add_fast with q lifted to z = 1: the complete add gives the
-    mixed add's limbs (z2 = 1 drops out of add-2007-bl)."""
-    return add_fast(p, from_affine(q))
+    from . import kernels
+
+    return kernels.g1_madd(p, q)
 
 
 def add_fast(p: G1Jac, q: G1Jac) -> G1Jac:

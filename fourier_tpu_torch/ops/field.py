@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from fourier_tpu.constants import FP_LIMBS, FR_LIMBS, LIMB_BITS, LIMB_MASK, P, R
-from fourier_tpu.ops.limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
+from ..constants import FP_LIMBS, FR_LIMBS, LIMB_BITS, LIMB_MASK, P, R
+from .limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
 
 MASK = LIMB_MASK
 

@@ -7,12 +7,17 @@ plain PyTorch twins.
 | g1_add      | csrc/g1_add.cu       | ops/pallas_curve.py:_add_inc_kernel                        |
 | g1_dbl      | csrc/g1_dbl.cu       | ops/pallas_curve.py:_dbl_kernel                            |
 | horner_2k   | csrc/horner_2k.cu    | ops/pallas_curve.py:horner_2k                              |
+| g1_madd     | csrc/g1_madd.cu      | ops/pallas_curve.py:_madd_kernel                           |
 
-The kernels are built with nvcc for sm_90a at first use, into
+ops/pallas_curve.py:_add_kernel (the complete Jacobian add behind
+pallas_curve.add) computes K2's function on every lane and maps to K2.
+
+The kernels are built with nvcc for sm_90a at first use, one nvcc per
+source, all started together, then linked into one library in
 ``fourier_tpu_torch/_build`` under a name keyed by a hash of the sources
-and flags, and bound through a plain C interface with ctypes.  A wrapper
-given CUDA tensors launches its kernel on the current stream or raises;
-given CPU tensors it runs the plain twin.  Every launch adds one to
+and flags; the library is bound through a plain C interface with ctypes.
+A wrapper given CUDA tensors launches its kernel on the current stream or
+raises; given CPU tensors it runs the plain twin.  Every launch adds one to
 ``COUNTERS.launches[name]``; lanes that took the doubling branch of a
 complete addition are summed on the device into ``COUNTERS.collisions``.
 """
@@ -28,21 +33,22 @@ import subprocess
 
 import torch
 
-from fourier_tpu.constants import FP_LIMBS
+from ..constants import FP_LIMBS
 
 from . import curve as cv
 from .curve import G1Aff, G1Jac
 from .field import FP
 
-KERNELS = ("accumulate", "g1_add", "g1_dbl", "horner_2k")
+KERNELS = ("accumulate", "g1_add", "g1_dbl", "horner_2k", "g1_madd")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SOURCES = ("accumulate.cu", "g1_add.cu", "g1_dbl.cu", "horner_2k.cu", "errors.cu")
+_SOURCES = ("accumulate.cu", "g1_add.cu", "g1_dbl.cu", "horner_2k.cu", "g1_madd.cu",
+            "errors.cu")
 _HEADERS = ("g1.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 class KernelCounters:
@@ -95,26 +101,46 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(path: str) -> None:
+    """One nvcc per source, all running at once, then one link; the
+    library appears under its final name only when complete."""
+    nvcc = _nvcc()
+    work = f"{path}.{os.getpid()}.d"
+    os.makedirs(work, exist_ok=True)
+    try:
+        objs = [os.path.join(work, s + ".o") for s in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, s), "-o", o],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(_SOURCES, objs)]
+        outs = [(s, p.communicate()[0], p.returncode) for s, p in zip(_SOURCES, procs)]
+        failed = [f"{s} ({rc}):\n{out}" for s, out, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        res = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 @functools.cache
 def build() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     path = os.path.join(BUILD_DIR, f"libfourier_kernels-{_digest()}.so")
     if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in _SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, path)
+        _compile_and_link(path)
     lib = ctypes.CDLL(path)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     lib.fk_accumulate.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     lib.fk_g1_add.argtypes = [vp] * 9 + [i64, vp, vp]
     lib.fk_g1_dbl.argtypes = [vp] * 6 + [i64, i32, vp]
     lib.fk_horner_2k.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, vp]
-    for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_dbl, lib.fk_horner_2k):
+    lib.fk_g1_madd.argtypes = [vp] * 9 + [i64, vp, vp]
+    for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_dbl, lib.fk_horner_2k,
+               lib.fk_g1_madd):
         fn.restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
@@ -241,6 +267,41 @@ def g1_add(p: G1Jac, q: G1Jac) -> G1Jac:
                            _ptr(COUNTERS.collision_buffer("g1_add", dev)), _stream(dev))
         COUNTERS.launches["g1_add"] += 1
         _check(lib, "g1_add", rc)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return G1Jac(*(c.reshape(shape) for c in out))
+
+
+# -- K5 g1_madd ---------------------------------------------------------------------
+
+def g1_madd_plain(p: G1Jac, q: G1Aff) -> G1Jac:
+    return cv.madd(p, q)
+
+
+def g1_madd(p: G1Jac, q: G1Aff) -> G1Jac:
+    """K5: batched complete mixed addition p + q (q affine, bool infinity
+    mask), any batch shape."""
+    shape = p.x.shape
+    if q.x.shape != shape or q.inf.shape != shape[1:]:
+        raise ValueError(f"batch shapes differ: {tuple(shape)} vs {tuple(q.x.shape)}")
+    if q.inf.dtype != torch.bool:
+        raise ValueError(f"q.inf must be bool, got {q.inf.dtype}")
+    a = _coords(p)
+    b = _coords(q[:2])
+    inf = q.inf.reshape(-1).contiguous()
+    dev = a[0].device
+    if b[0].device != dev or inf.device != dev:
+        raise ValueError("operands on different devices")
+    if dev.type == "cpu":
+        out = g1_madd_plain(G1Jac(*a), G1Aff(*b, inf))
+    elif dev.type == "cuda":
+        lib = build()
+        n = a[0].shape[1]
+        out = _empty_like_coords(n, dev)
+        rc = lib.fk_g1_madd(*map(_ptr, a + b), _ptr(inf), *map(_ptr, out), n,
+                            _ptr(COUNTERS.collision_buffer("g1_madd", dev)), _stream(dev))
+        COUNTERS.launches["g1_madd"] += 1
+        _check(lib, "g1_madd", rc)
     else:
         raise ValueError(f"unsupported device {dev}")
     return G1Jac(*(c.reshape(shape) for c in out))

@@ -1,9 +1,9 @@
-"""Window digits, bucket-sum helpers, the Horner combine and the
-fixed-base MSMs of setup and precompute.
+"""Window digits, bucket-sum helpers, the Horner combine, the tableless
+MSM entry points (``msm``, ``msm_naive``) and the fixed-base MSMs of setup
+and precompute.
 
-Port of the parts of ``fourier_tpu.ops.msm`` that the commit/open path
-and server start use.  Scalars are canonical (non-Montgomery) Fr limbs,
-int64 ``[16, n]``.
+Port of ``fourier_tpu.ops.msm``.  Scalars are canonical (non-Montgomery)
+Fr limbs, int64 ``[16, n]``.
 """
 
 from __future__ import annotations
@@ -12,8 +12,8 @@ from functools import lru_cache
 
 import torch
 
-from fourier_tpu.constants import FP_LIMBS, LIMB_BITS
-from fourier_tpu.refimpl.curve import g1_add, g1_mul
+from ..constants import FP_LIMBS, LIMB_BITS
+from ..refimpl.curve import g1_add, g1_mul
 
 from . import curve as cv
 from . import kernels
@@ -57,6 +57,43 @@ def _horner_2k(terms: G1Jac) -> G1Jac:
     L, K, R = terms.x.shape
     res = kernels.horner_2k(G1Jac(*(c.reshape(L, K * R) for c in terms)), width=R)
     out = cv.fold_small(res)
+    return G1Jac(*(c[..., 0] for c in out))
+
+
+def _auto_window(n: int) -> int:
+    """The reference's tableless window: many buckets, few fat runs."""
+    return max(6, min(13, n.bit_length() - 4))
+
+
+def msm(points: G1Aff, scalars) -> G1Jac:
+    """Tableless Pippenger MSM sum_i scalars[i] * points[i] for an [L, n]
+    affine batch; returns one Jacobian point ([L] coordinates)."""
+    from .msm_fused import msm_fused
+
+    return msm_fused(points, scalars, _auto_window(points.x.shape[-1]))
+
+
+def _bit_length(scalars) -> int:
+    """Bits of the largest of [FR_LIMBS, n] canonical scalars."""
+    nonzero = torch.nonzero((scalars != 0).any(dim=1)).reshape(-1)
+    if nonzero.numel() == 0:
+        return 0
+    top = int(nonzero[-1])
+    return top * LIMB_BITS + int(scalars[top].max()).bit_length()
+
+
+def msm_naive(points: G1Aff, scalars) -> G1Jac:
+    """The MSM of tiny n: every lane runs double-and-add on its own point
+    from the scalars' top bit down (K3 doubles, K5 mixed-adds the affine
+    point where the bit is set), then one tree sum (K2)."""
+    n = points.x.shape[-1]
+    acc = cv.jac_identity((n,), points.x.device)
+    for k, i in enumerate(reversed(range(_bit_length(scalars)))):
+        if k:
+            acc = cv.dbl_fast(acc)
+        bit = ((scalars[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1).bool()
+        acc = cv.madd_fast(acc, G1Aff(points.x, points.y, points.inf | ~bit))
+    out = cv.tree_reduce_last(acc, 1)
     return G1Jac(*(c[..., 0] for c in out))
 
 

@@ -1,22 +1,24 @@
-"""The shared-bucket BGMW MSM over a precomputed window table: the MSM of
-every workerCommit and workerOpen.
+"""The bucket MSMs: the shared-bucket BGMW MSM over a precomputed window
+table (every workerCommit and workerOpen of a row with a table) and the
+tableless per-window Pippenger MSM (a row without one).
 
-Port of the BGMW half of ``fourier_tpu.ops.msm_fused``, keeping its
-contract and not its TPU layout.  Digits are sorted once
-(``torch.sort(stable=True)``), bucket counts and starts come from
+Port of ``fourier_tpu.ops.msm_fused``, keeping its contract and not its
+TPU layout.  Digits are sorted once (``torch.sort(stable=True)``, per
+window for the tableless MSM), bucket counts and starts come from
 ``bincount``/``cumsum``, heavy buckets are split exactly as in the
-reference (``_split_heavy_slots``, ``_split_cap(factor=64)``), and one K1
-launch accumulates every slot: thread s mixed-adds its run of table rows
-in stable-sorted order, the order the reference's slab rounds use, so
-the buckets equal the reference's slot for slot.  The slab machinery
-(tiles, rounds, quad gathers, the unpermute) has no counterpart.
+reference (``_split_heavy_slots``; ``_split_cap`` with factor 64 for BGMW,
+16 tableless), and one K1 launch accumulates every slot: thread s
+mixed-adds its run of table rows in stable-sorted order, the order the
+reference's slab rounds use, so the buckets equal the reference's slot for
+slot.  The slab machinery (tiles, rounds, quad gathers, the unpermute) has
+no counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fourier_tpu.constants import FP_LIMBS
+from ..constants import FP_LIMBS
 
 from . import curve as cv
 from . import kernels
@@ -108,28 +110,55 @@ def _split_cap(total: int, n_buckets: int, factor: int = 16) -> int:
 
 
 def _split_heavy_slots(counts, starts, cap: int, spare: int):
-    """Heavy-bucket splitting over one bucket axis: loads capped at `cap`.
+    """Heavy-bucket splitting over the last (bucket) axis of [..., B]
+    counts and starts: loads capped at `cap`.
 
     A bucket with count > cap keeps its first `cap` rows in its own slot;
     each further cap-sized chunk takes the next slot of the spare region.
-    Returns (counts', starts', weights') of length B + spare, weights'
+    Returns (counts', starts', weights') shaped [..., B + spare], weights'
     being each slot's bucket index (0 = contributes nothing)."""
     B = counts.shape[-1]
     dev = counts.device
+    lead = counts.shape[:-1]
     extra = torch.clamp((counts - 1) // cap, min=0)
     cum_incl = torch.cumsum(extra, dim=-1)
-    total_extra = cum_incl[-1:]
-    e = torch.arange(spare, dtype=cum_incl.dtype, device=dev)
-    j = torch.searchsorted(cum_incl, e, right=True).clamp(0, B - 1)
-    p = e - (cum_incl - extra)[j] + 1                  # part index >= 1
-    valid = e < total_extra
-    sp_counts = torch.where(valid, torch.clamp(counts[j] - p * cap, 0, cap), 0)
-    sp_starts = starts[j] + p * cap
+    e = torch.arange(spare, dtype=cum_incl.dtype, device=dev).expand(lead + (spare,))
+    j = torch.searchsorted(cum_incl, e.contiguous(), right=True).clamp(0, B - 1)
+    p = e - torch.gather(cum_incl - extra, -1, j) + 1          # part index >= 1
+    valid = e < cum_incl[..., -1:]
+    sp_counts = torch.where(valid, torch.clamp(torch.gather(counts, -1, j) - p * cap, 0, cap), 0)
+    sp_starts = torch.gather(starts, -1, j) + p * cap
     sp_weights = torch.where(valid & (sp_counts > 0), j, 0)
-    idx = torch.arange(B, dtype=j.dtype, device=dev)
-    return (torch.cat([torch.clamp(counts, max=cap), sp_counts]),
-            torch.cat([starts, sp_starts]),
-            torch.cat([idx, sp_weights]))
+    idx = torch.arange(B, dtype=j.dtype, device=dev).expand(lead + (B,))
+    return (torch.cat([torch.clamp(counts, max=cap), sp_counts], dim=-1),
+            torch.cat([starts, sp_starts], dim=-1),
+            torch.cat([idx, sp_weights], dim=-1))
+
+
+def _sorted_runs(digits, flags, n_buckets: int, cap: int, spare: int):
+    """K1's arguments for bucket sets along the last axis of [..., m]
+    digits (one set per leading index, e.g. per window): (index, start,
+    count, weights).
+
+    Each row's digits are sorted stably; index entry k of row r is
+    (table row << 2) | flags of that row, where table row is the sorted
+    position's column.  Slot (r, s) accumulates index[start : start +
+    count], with starts into the flattened index; digit 0 is dropped and
+    heavy buckets are split (weights [..., n_buckets + spare])."""
+    lead, m = digits.shape[:-1], digits.shape[-1]
+    dev = digits.device
+    order = torch.sort(digits, dim=-1, stable=True).indices
+    rows = digits.reshape(-1, m).shape[0]
+    row_off = torch.arange(rows, device=dev)[:, None]
+    counts = torch.bincount((digits.reshape(rows, m) + row_off * n_buckets).reshape(-1),
+                            minlength=rows * n_buckets).reshape(lead + (n_buckets,))
+    starts = (torch.cumsum(counts, -1) - counts
+              + (row_off * m).reshape(lead + (1,)))                  # into the flat index
+    counts[..., 0] = 0                                                # drop digit 0
+    counts_s, starts_s, weights = _split_heavy_slots(counts, starts, cap, spare)
+    index = (order << 2) | torch.gather(flags.expand(digits.shape), -1, order)
+    return (index.reshape(-1).to(torch.int32), starts_s.reshape(-1).to(torch.int32),
+            counts_s.reshape(-1).to(torch.int32), weights)
 
 
 def bgmw_buckets_from_digits(packed_table, table_inf, digits_flat, c: int,
@@ -155,20 +184,11 @@ def bucket_runs(table_inf, digits_flat, c: int, neg_flat=None):
     Bpow = 1 << (c - 1) if signed else 1 << c
     B = Bpow + 1 if signed else Bpow
     cap = _split_cap(WN, Bpow, factor=64)
-    spare = max(MIN_SPARE, -(-WN // cap))
-
-    digits = torch.where(table_inf, 0, digits_flat)
-    order = torch.sort(digits, stable=True).indices
-    counts = torch.bincount(digits, minlength=B)
-    starts = torch.cumsum(counts, 0) - counts
-    counts[0] = 0                                                # drop digit 0
-    counts_s, starts_s, weights = _split_heavy_slots(counts, starts, cap, spare)
-
     flags = table_inf.to(torch.int64)
     if signed:
         flags = flags | (neg_flat.to(torch.int64) << 1)
-    index = ((order << 2) | flags[order]).to(torch.int32)
-    return index, starts_s.to(torch.int32), counts_s.to(torch.int32), weights
+    return _sorted_runs(torch.where(table_inf, 0, digits_flat), flags, B, cap,
+                        max(MIN_SPARE, -(-WN // cap)))
 
 
 def _pad_lanes(p: G1Jac, width: int) -> G1Jac:
@@ -204,15 +224,15 @@ def _weighted_sums_factored(buckets: G1Jac, weights, c: int, B: int) -> G1Jac:
 
 
 def _weighted_partial_sums(buckets: G1Jac, weights, c: int) -> G1Jac:
-    """[L, B'] buckets with per-slot weights -> [L, c, R] bit partial sums."""
-    n = buckets.x.shape[-1]
+    """[L, ..., B'] buckets with per-slot weights [..., B'] -> [L, ..., c, R]
+    bit partial sums."""
     bits = torch.arange(c, device=weights.device)
-    masks = ((weights[None, :] >> bits[:, None]) & 1).bool()       # [c, B']
-    shape = (FP_LIMBS, c, n)
+    masks = ((weights[..., None, :] >> bits[:, None]) & 1).bool()  # [..., c, B']
+    shape = buckets.x.shape[:-1] + (c, buckets.x.shape[-1])
     return cv.tree_reduce_last(
-        G1Jac(buckets.x[:, None, :].expand(shape),
-              buckets.y[:, None, :].expand(shape),
-              torch.where(masks[None], buckets.z[:, None, :], 0)), to=32)
+        G1Jac(buckets.x.unsqueeze(-2).expand(shape),
+              buckets.y.unsqueeze(-2).expand(shape),
+              torch.where(masks[None], buckets.z.unsqueeze(-2), 0)), to=32)
 
 
 def bgmw_reduce(buckets: G1Jac, weights, c: int, signed: bool) -> G1Jac:
@@ -230,3 +250,31 @@ def msm_fused_bgmw(packed_table, table_inf, scalars, c: int) -> G1Jac:
     buckets, weights = bgmw_buckets_from_digits(packed_table, table_inf, digits_flat,
                                                 c, neg_flat)
     return bgmw_reduce(buckets, weights, c, neg_flat is not None)
+
+
+# -- the tableless MSM ------------------------------------------------------------
+
+def msm_fused(points: G1Aff, scalars, c: int) -> G1Jac:
+    """Tableless Pippenger MSM sum_i scalars[i] * points[i] (one point)."""
+    return msm_fused_packed(pack_points(points), points.inf, scalars, c)
+
+
+def msm_fused_packed(packed, inf, scalars, c: int) -> G1Jac:
+    """Tableless Pippenger MSM over packed points: W = ceil(256 / c) windows
+    of unsigned c-bit digits, each with its own 2^c buckets and spare
+    slots; one K1 launch over all W * (2^c + spare) slots, the weighted
+    bucket sums of every window at once through K2 trees, and one K4
+    Horner over the W * c terms (term c * w + j has weight 2^(c w + j))."""
+    n = packed.shape[0]
+    W = -(-SCALAR_BITS // c)
+    B = 1 << c
+    cap = _split_cap(n, B)
+    digits = msm_mod._all_window_digits(scalars, c, W)             # [W, n]
+    digits = torch.where(inf[None], 0, digits)       # infinity joins digit 0
+    index, start, count, weights = _sorted_runs(digits, inf.to(torch.int64), B, cap,
+                                                max(MIN_SPARE, -(-n // cap)))
+    buckets = kernels.accumulate(packed, index, start, count)     # [L, W * Bp]
+    Bp = weights.shape[-1]
+    ps = _weighted_partial_sums(G1Jac(*(t.reshape(FP_LIMBS, W, Bp) for t in buckets)),
+                                weights, c)                        # [L, W, c, R]
+    return msm_mod._horner_2k(G1Jac(*(t.reshape(FP_LIMBS, W * c, -1) for t in ps)))

@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fourier_tpu.constants import FR_LIMBS, R, root_of_unity
-from fourier_tpu.ops.limbs import ints_to_vec
+from ..constants import FR_LIMBS, R, root_of_unity
+from .limbs import ints_to_vec
 
 from .field import FR
 

@@ -20,12 +20,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from fourier_tpu import native
-from fourier_tpu.constants import FR_LIMBS, R
-from fourier_tpu.ops.limbs import bytes_be_to_limbs, int_to_limbs, limbs_to_bytes_be
-from fourier_tpu.refimpl import curve as rc
-from fourier_tpu.refimpl.field import fr_from_bytes, fr_to_bytes
-from fourier_tpu.runtime import wire
+from .. import native
+from ..constants import FR_LIMBS, R
+from ..ops.limbs import bytes_be_to_limbs, int_to_limbs, limbs_to_bytes_be
+from ..refimpl import curve as rc
+from ..refimpl.field import fr_from_bytes, fr_to_bytes
+from . import wire
 
 from ..models.piano import PianoBackend, SetupConfig
 from ..ops.kernels import COUNTERS
@@ -64,10 +64,7 @@ def _enc_fr(v: int) -> str:
 def _enc_fr_batch(limbs: np.ndarray) -> list[str]:
     """[FR_LIMBS, n] canonical limbs -> base64 wire strings."""
     raw = np.frombuffer(limbs_to_bytes_be(np.asarray(limbs).T, 32), np.uint8).reshape(-1, 32)
-    out = native.encode_b64_batch(raw)
-    if out is not None:
-        return out
-    return [wire.b64_encode(r.tobytes()) for r in raw]
+    return native.encode_b64_batch(raw)
 
 
 def _enc_g1(pt) -> str:
@@ -94,11 +91,10 @@ def _geq_r(limbs: np.ndarray) -> np.ndarray:
 
 def _parse_poly_limbs(strs: list[str]) -> np.ndarray:
     """Base64 strings -> canonical [FR_LIMBS, n] limbs, rejecting values
-    >= r; the native batch decoder when it is built, else numpy."""
+    >= r; the native batch decoder for strings, numpy for the rest (which
+    wire.b64_decode rejects)."""
     if strs and all(isinstance(s, str) for s in strs):
-        limbs = native.decode_scalars_b64(strs, _R_BE, FR_LIMBS)
-        if limbs is not None:
-            return np.ascontiguousarray(limbs.T)
+        return np.ascontiguousarray(native.decode_scalars_b64(strs, _R_BE, FR_LIMBS).T)
     raw = b"".join(wire.b64_decode(s) for s in strs)
     if len(raw) != 32 * len(strs):
         raise ValueError("scalar encoding must be 32 bytes")

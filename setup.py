@@ -12,7 +12,7 @@ setup(
     version="0.1.0",
     description="TPU-native distributed KZG commitment framework (Pianist/PIANO)",
     packages=find_packages(include=["fourier_tpu", "fourier_tpu.*", "fourier_tpu_torch*"]),
-    package_data={"fourier_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"fourier_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "requests"],
     extras_require={"torch": ["torch"]},

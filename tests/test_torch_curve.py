@@ -5,8 +5,10 @@ pair, identities on either side and both) goes through the complete
 formulas of both packages, the trees and the affine conversions.  The
 JAX side runs as its own tests run it: the jnp path, and for each point
 kernel one case through the Pallas interpreter (TILE patched to 128, two
-grid steps with padding).  Comparisons are exact.  The CUDA kernels
-against their plain twins on a card are in test_torch_kernels.py.
+grid steps with padding): the incomplete kernels behind the fast paths,
+and the complete pallas_curve.madd/add (_madd_kernel, _add_kernel) against
+K5's twin and K2.  Comparisons are exact.  The CUDA kernels against their
+plain twins on a card are in test_torch_kernels.py.
 """
 
 import random
@@ -18,8 +20,10 @@ import torch
 from fourier_tpu.constants import R
 from fourier_tpu.ops import curve as jcv
 from fourier_tpu.ops import pallas_curve as pc
+from fourier_tpu.ops.field import FP as JFP
 from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
 from fourier_tpu_torch.ops import curve as tcv
+from fourier_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
 
@@ -90,6 +94,28 @@ def test_fast_paths_match_pallas_interpreter(lanes, op, monkeypatch):
     else:
         _same(jcv.dbl_fast(jp), tcv.dbl_fast(tp))
         _same(jcv.dbl_fast(jcv.dbl_fast(jcv.dbl_fast(jp))), tcv.dbl_fast(tp, repeat=3))
+
+
+@pytest.mark.parametrize("op", ["madd", "add"])
+def test_complete_pallas_kernels_match_k5_and_k2(lanes, op, monkeypatch):
+    """pallas_curve.madd (_madd_kernel) against K5's plain twin and
+    pallas_curve.add (_add_kernel) against K2's, on the lane plan: as
+    points, and as limbs once the kernel's [0, 2p) values are reduced."""
+    monkeypatch.setenv("FOURIER_PALLAS", "1")
+    monkeypatch.setenv("FOURIER_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(pc, "TILE", 128)
+    ps, qs = lanes
+    jp, jq_aff, jq, tp, tq_aff, tq = _operands(ps, qs)
+    if op == "madd":
+        jout = jcv.G1Jac(*pc.madd(jp.x, jp.y, jp.z, jq_aff.x, jq_aff.y, jq_aff.inf))
+        tout = kernels.g1_madd(tp, tq_aff)
+    else:
+        jout = jcv.G1Jac(*pc.add(jp.x, jp.y, jp.z, jq.x, jq.y, jq.z))
+        tout = kernels.g1_add(tp, tq)
+    expect = [g1_add(a, b) for a, b in zip(ps, qs)]
+    assert jcv.jac_to_int_points(jout) == expect
+    assert tcv.jac_to_int_points(tout) == expect
+    _same(jcv.G1Jac(*(JFP.canonicalize(c) for c in jout)), tout)
 
 
 def test_trees_match_jax(lanes):

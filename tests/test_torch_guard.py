@@ -1,11 +1,13 @@
-"""The port stays free of JAX and refuses what it does not serve.
+"""The port stays free of JAX and of the JAX package, and refuses what it
+cannot do.
 
 - A fresh interpreter imports every fourier_tpu_torch module, commits a
-  scale-4 row on the CPU and finds no jax module loaded.
+  scale-4 row on the CPU and finds no jax and no fourier_tpu module
+  loaded.
 - No port source (nor chip_smoke.py, nor the card-only kernel tests)
-  names jax.
-- `run` refuses a CUDA device when none is visible, and the setup-file
-  paths and the `setup` subcommand exit with a "not yet ported" error.
+  imports jax or any fourier_tpu module other than fourier_tpu_torch.
+- `run` refuses a CUDA device when none is visible; `setup` refuses what
+  the reference's can_proceed refuses, with exit code 1.
 - chip_smoke.py exits non-zero with no result line when no card is seen.
 - The kernel wrappers check their arguments before anything launches.
 """
@@ -30,15 +32,16 @@ _SLICE = """
 import sys
 import torch
 torch.set_num_threads(1)
-import fourier_tpu_torch, fourier_tpu_torch.convert
-import fourier_tpu_torch.runtime.cli, fourier_tpu_torch.runtime.server
+import fourier_tpu_torch, fourier_tpu_torch.convert, fourier_tpu_torch.ops.serialize
+import fourier_tpu_torch.runtime.cli, fourier_tpu_torch.runtime.server, fourier_tpu_torch.runtime.io
 from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                             PianoPrecompute, generate_trusted_setup)
-fft = PianoFFTSettings(4, 1)
+fft = PianoFFTSettings(4, 1, "cpu")
 settings = generate_trusted_setup(fft, (b"\\x2a" * 32, b"\\x2b" * 32))
 settings.precompute = PianoPrecompute.generate(settings)
 com = PianoBackend(fft, settings).worker_commit(0, [1, 4, 7, 10, 13, 16, 19, 22])
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+loaded = sorted(m for m in sys.modules if m in ("jax", "fourier_tpu")
+                or m.startswith(("jax.", "jaxlib", "fourier_tpu.")))
 print("COMMIT", com[0] % 1000, "JAX", loaded)
 """
 
@@ -58,9 +61,8 @@ def test_slice_loads_no_jax():
 
 
 def test_port_sources_never_name_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fourier_tpu\.(ops\.(field|curve|"
-                         r"msm|msm_fused|ntt|serialize|pallas_curve|fp2)|models|"
-                         r"runtime\.(server|cli|io|client|aot)|parallel))\b", re.M)
+    # fourier_tpu\b does not match fourier_tpu_torch: no word boundary before "_"
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fourier_tpu)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py")]
     for dirpath, _, names in os.walk(PKG):
@@ -71,17 +73,24 @@ def test_port_sources_never_name_jax():
         assert hit is None, f"{path} names {hit.group(0)!r}"
 
 
-@pytest.mark.parametrize("args", [
-    ["run", "--scale", "4", "--machines-scale", "1"],                  # no card visible
-    ["run", "--device", "cpu", "--setup-path", "setup.bin"],
-    ["run", "--device", "cpu", "--precompute-path", "pre.bin"],
-    ["setup", "--scale", "4"],
-])
-def test_cli_refuses_what_it_does_not_serve(args):
+@pytest.mark.parametrize("args,code,message", [
+    (["run", "--scale", "4", "--machines-scale", "1"], 2, "no CUDA device"),
+    (["setup", "--setup-path", "{existing}", "--generate-setup", "--device", "cpu"], 1,
+     "already exists, use --overwrite"),
+    (["setup", "--compress-existing", "--decompress-existing", "--uncompressed"], 1,
+     "Cannot compress and decompress at the same time"),
+    (["setup", "--compress-existing", "--device", "cpu"], 1,
+     "Cannot compress an already compressed file"),
+], ids=["args0", "args1", "args2", "args3"])
+def test_cli_refuses_what_it_does_not_serve(args, code, message, tmp_path):
+    existing = tmp_path / "setup"
+    existing.write_bytes(b"keep")
+    args = [a.replace("{existing}", str(existing)) for a in args]
     out = subprocess.run([sys.executable, "-m", "fourier_tpu_torch", *args], cwd=ROOT,
                          env=_env(), capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2, out.stderr
-    assert ("no CUDA device" in out.stderr) or ("not yet ported" in out.stderr)
+    assert out.returncode == code, out.stderr
+    assert message in out.stderr
+    assert existing.read_bytes() == b"keep"
 
 
 def test_chip_smoke_refuses_without_card():

@@ -8,7 +8,9 @@ final point is held against refimpl and the reference's msm_naive (the
 reduction half under the interpreter costs minutes on a CPU).  n = 32 at
 c = 7 (signed digits) and c = 8 (unsigned), with an infinity row, a zero
 scalar, a duplicated point with an equal scalar, and all-equal scalars.
-Comparisons are exact.
+The tableless msm (n = 65, random and all-equal scalars) and msm_naive (n = 8) give the points
+of the reference's msm (its CPU jnp path) and msm_naive.  Comparisons are
+exact.
 """
 
 import random
@@ -25,7 +27,7 @@ from fourier_tpu.ops import msm_fused as jmf
 from fourier_tpu.ops import pallas_curve as pc
 from fourier_tpu.ops.field import FP as JFP
 from fourier_tpu.ops.limbs import ints_to_vec
-from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_msm, g1_mul
+from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_msm, g1_msm_fast, g1_mul
 from fourier_tpu_torch.ops import curve as tcv
 from fourier_tpu_torch.ops import kernels
 from fourier_tpu_torch.ops import msm as tmsm
@@ -115,6 +117,45 @@ def test_bgmw_buckets_and_point_match_jax(points, jax_tables, c, kind, monkeypat
     assert [got] == want
     assert got == tcv.jac_to_int_points(tcv.G1Jac(*(x[..., None] for x in tmf.msm_fused_bgmw(
         tmf.pack_points(ttable), ttable.inf, tsc, c))))[0]
+
+
+def _point(p):
+    """A single-point batch (either package's G1Jac of [L] coordinates) as a
+    refimpl point."""
+    if isinstance(p.x, torch.Tensor):
+        return tcv.jac_to_int_points(tcv.G1Jac(*(x[..., None] for x in p)))[0]
+    return jcv.jac_to_int_points(jcv.G1Jac(*(x[..., None] for x in p)))[0]
+
+
+@pytest.mark.parametrize("n,kind", [(65, "mixed"), (65, "equal")])
+def test_tableless_msm_matches_jax(n, kind):
+    """msm at the reference's window (c = 6: 43 windows of 64 buckets).
+    mixed: random points, two at infinity, a zero scalar; equal: every
+    window puts all 65 points in one bucket, past its cap, so the bucket
+    splits over the spare slots."""
+    rng = random.Random(f"{n}-{kind}")
+    pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(n)]
+    if kind == "mixed":
+        pts[3] = pts[40] = None
+        sc = [rng.randrange(R) for _ in range(n)]
+        sc[7] = 0
+    else:
+        sc = [12345678901234567890123] * n
+        assert tmf._split_cap(n, 1 << 6) < n
+    jsc, tsc = _scalar_pair(sc)
+    assert tmsm._auto_window(n) == jmsm._auto_window(n) == 6
+    got = _point(tmsm.msm(tcv.affine_from_ints(pts), tsc))
+    assert got == _point(jmsm.msm(jcv.affine_from_ints(pts), jsc)) == g1_msm_fast(pts, sc)
+
+
+def test_msm_naive_matches_jax():
+    rng = random.Random(8)
+    pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(8)]
+    pts[2] = None
+    sc = [0, 1] + [rng.randrange(R) for _ in range(6)]
+    jsc, tsc = _scalar_pair(sc)
+    got = _point(tmsm.msm_naive(tcv.affine_from_ints(pts), tsc))
+    assert got == _point(jmsm.msm_naive(jcv.affine_from_ints(pts), jsc)) == g1_msm(pts, sc)
 
 
 def test_split_heavy_slots_matches_jax():

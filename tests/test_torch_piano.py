@@ -5,7 +5,7 @@ trusted setup and window tables equal the JAX package's limb for limb;
 the JAX setup carried across by fourier_tpu_torch.convert commits and
 opens to the JAX backend's bytes (including the coefficient-basis
 fallback for an alpha in the domain); and the port's own backend
-reproduces the pinned transcript.
+reproduces the pinned transcript, with its tables and without them.
 """
 
 import json
@@ -64,7 +64,7 @@ def jax_side(fx):
 
 @pytest.fixture(scope="module")
 def port_backend(fx):
-    fft = tpiano.PianoFFTSettings(fx["scale"], fx["machines_scale"])
+    fft = tpiano.PianoFFTSettings(fx["scale"], fx["machines_scale"], "cpu")
     settings = tpiano.generate_trusted_setup(fft, _secrets(fx))
     settings.precompute = tpiano.PianoPrecompute.generate(settings)
     return tpiano.PianoBackend(fft, settings)
@@ -90,9 +90,9 @@ def test_setup_and_tables_match_jax(jax_side, port_backend):
 
 def test_converted_backend_matches_jax_bytes(fx, jax_side):
     jbackend, ref = jax_side
-    settings = convert.settings_from_arrays(ref)
-    backend = tpiano.PianoBackend(tpiano.PianoFFTSettings(fx["scale"], fx["machines_scale"]),
-                                  settings)
+    settings = convert.settings_from_arrays(ref, device="cpu")
+    fft = tpiano.PianoFFTSettings(fx["scale"], fx["machines_scale"], "cpu")
+    backend = tpiano.PianoBackend(fft, settings)
     rng = random.Random(0xB17E)
     rows = fx["rows"] + [[rng.randrange(R) for _ in range(backend.fft.T)]]
     in_domain = backend.fft.left_roots[3]
@@ -139,12 +139,18 @@ def test_port_reproduces_pinned_transcript(fx, port_backend):
     assert b.master_verify(mc, beta, alpha, z, (pi0, pi1))
 
 
-def test_tableless_msm_not_ported(port_backend):
+def test_tableless_msm_not_ported(fx, port_backend):
+    """Without tables every row serves tableless (msm_naive: 8 points a
+    row) and gives the pinned transcript's commitments, evals and proofs."""
     settings = port_backend.settings
     saved = settings.precompute
     settings.precompute = None
     try:
-        with pytest.raises(NotImplementedError, match="tableless MSM not yet ported"):
-            port_backend.worker_commit(0, [1])
+        for i, row in enumerate(fx["rows"]):
+            y, pi = port_backend.worker_open(i, row, fx["alpha"])
+            assert (g1_to_bytes(port_backend.worker_commit(i, row)), fr_to_bytes(y),
+                    g1_to_bytes(pi)) == (wire.b64_decode(fx["commitments"][i]),
+                                         wire.b64_decode(fx["evals"][i]),
+                                         wire.b64_decode(fx["proofs"][i]))
     finally:
         settings.precompute = saved

@@ -42,7 +42,7 @@ def _serve(module, backend):
 def urls():
     jfft = jpiano.PianoFFTSettings(SCALE, MACHINES_SCALE)
     jbackend = jpiano.PianoBackend(jfft, jpiano.generate_trusted_setup(jfft, SECRETS))
-    tfft = tpiano.PianoFFTSettings(SCALE, MACHINES_SCALE)
+    tfft = tpiano.PianoFFTSettings(SCALE, MACHINES_SCALE, "cpu")
     tsettings = tpiano.generate_trusted_setup(tfft, SECRETS)
     tsettings.precompute = tpiano.PianoPrecompute.generate(tsettings)
     tbackend = tpiano.PianoBackend(tfft, tsettings)
