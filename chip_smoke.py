@@ -15,8 +15,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    small batches of adversarial lanes (the lane plan of
    tests/test_pallas.py: same point, inverse pair, identity on either side
    and both, in a width that is no multiple of a block; K2 on it is also
-   the check of the complete-add TPU kernel it replaces), then the shapes
-   the scale-20 main path gives it, timed (kernel and plain).
+   the check of the complete-add TPU kernel it replaces; K1 on runs of up
+   to three pieces; the tree kernel on groups whose halves meet the same
+   point, its inverse or an identity), then the shapes the scale-20 main
+   path gives it, timed (kernel and plain): K1 at one commit's 2^23 rows,
+   the tree kernel over the trees of one BGMW reduction of its buckets.
 2. The pinned protocol transcript (tests/fixtures) reproduced on the card.
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
    MSM of fourier_tpu_torch.native on the same row.
@@ -32,14 +35,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    that server equals the one of an in-process backend that loads only
    the setup file and regenerates its tables.
 6. Tableless: on that in-process backend, row 0 without its table commits
-   and opens to the tabled bytes (K1, K2, K4 over the tableless MSM); the
+   and opens to the tabled bytes (K1, the tree kernel, K4); the
    pinned transcript's rows (8 points each) without tables take msm_naive
    (K3, K5, K2).
 
 The main path is phases 4 to 6, four paths: the in-memory server, the
 file-loaded server, the tableless MSM at T = 2^19 and msm_naive at scale
 4.  Launches are counted from 0 before each path and read after it, and
-reported per path.  The line before the last is the kernels' JSON record;
+reported per path; a workerCommit of the in-memory server must launch no
+K2 and at most 6 tree kernels.  The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -67,6 +71,8 @@ SCALE = 20
 KERNEL_INFO = {
     "accumulate": ("fourier_tpu_torch/csrc/accumulate.cu", "fourier_tpu/ops/msm_fused.py:165"),
     "g1_add": ("fourier_tpu_torch/csrc/g1_add.cu", "fourier_tpu/ops/pallas_curve.py:470"),
+    "g1_tree_reduce": ("fourier_tpu_torch/csrc/g1_tree.cu",
+                       "fourier_tpu/ops/pallas_curve.py:470"),
     "g1_dbl": ("fourier_tpu_torch/csrc/g1_dbl.cu", "fourier_tpu/ops/pallas_curve.py:224"),
     "horner_2k": ("fourier_tpu_torch/csrc/horner_2k.cu", "fourier_tpu/ops/pallas_curve.py:255"),
     "g1_madd": ("fourier_tpu_torch/csrc/g1_madd.cu", "fourier_tpu/ops/pallas_curve.py:198"),
@@ -226,13 +232,16 @@ def _adversarial(device):
     check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "g1_dbl differs from its twin")
 
     # K1: runs over a 64-row table with identities, negations, a repeated
-    # row (doubling), a row and its negation (identity mid-run), empty runs
+    # row (doubling), a row and its negation (identity mid-run), empty
+    # runs, and runs of up to 3 pieces: two equal piece sums (doubling in
+    # the second pass), two opposite ones (the identity)
+    P = kernels.PIECE
     table_pts = [rng.choice(base) for _ in range(64)]
     table_pts[3] = None
     table = to_dev(cv.affine_from_ints(table_pts), device)
     entries, start, count = [], [], []
     for s in range(n):
-        k = rng.randrange(0, 7)
+        k = rng.choice([rng.randrange(0, 7), P - 1, P + 1, 3 * P])
         run = [(rng.randrange(64) << 2) | (rng.randrange(2) << 1) for _ in range(k)]
         if s == 20:
             run = [5 << 2, 5 << 2, 7 << 2]
@@ -240,6 +249,10 @@ def _adversarial(device):
             run = [5 << 2, (5 << 2) | 2, 9 << 2]
         if s == 22:
             run = [(3 << 2) | 1, 6 << 2]
+        if s == 23:
+            run = [7 << 2] * (2 * P)
+        if s == 24:
+            run = [9 << 2] * P + [(9 << 2) | 2] * P
         start.append(len(entries))
         count.append(len(run))
         entries += [e | int(table_pts[e >> 2] is None) for e in run]
@@ -248,8 +261,33 @@ def _adversarial(device):
     start, count = torch.tensor(start, **i32), torch.tensor(count, **i32)
     packed = pack_points(table)
     got = kernels.accumulate(packed, index, start, count)
-    plain = kernels.accumulate_plain(packed.cpu(), index.cpu(), start.cpu(), count.cpu())
+    args = (packed.cpu(), index.cpu(), start.cpu(), count.cpu())
+    plain = kernels.accumulate_plain(*args, piece=P)
     check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "accumulate differs from its twin")
+    check(cv.jac_to_int_points(got) == cv.jac_to_int_points(kernels.accumulate_plain(*args)),
+          "accumulate's pieces differ from whole runs as group elements")
+
+    # the tree kernel: groups whose first level pairs a point with itself,
+    # with its inverse, and identities on either side; a width folded while
+    # loading, strided leaves, and several roots a group
+    for groups, width, axis, to in ((4, 37, -1, 4), (5, 16, -2, 1), (2, 2100, -1, 1)):
+        half = (to << (-(-width // to) - 1).bit_length()) // 2
+        pts = []
+        for _ in range(groups):
+            row = [rng.choice(base) for _ in range(width)]
+            row[half] = row[0]
+            row[half + 1] = g1_neg(row[1])
+            row[2] = None
+            row[half + 3] = None
+            pts += row
+        leaves = cv.from_affine(cv.affine_from_ints(pts))
+        grid = type(leaves)(*(c.reshape(24, groups, width) for c in leaves))
+        if axis == -2:
+            grid = type(grid)(*(c.transpose(1, 2) for c in grid))
+        got = kernels.g1_tree_reduce([(to_dev(grid, device), axis, to)])[0]
+        plain = kernels.g1_tree_reduce_plain(grid, axis, to)
+        check(max_abs_err(to_dev(got, "cpu"), plain) == 0,
+              f"g1_tree_reduce differs from its twin ({groups} x {width} -> {to})")
 
     # K4 over K = 6 terms of 37 lanes with identity lanes inside
     K, width = 6, 37
@@ -260,6 +298,81 @@ def _adversarial(device):
     got = kernels.horner_2k(terms, width)
     plain = kernels.horner_2k_plain(to_dev(terms, "cpu"), width)
     check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "horner_2k differs from its twin")
+
+
+def _tree_work(p, axis, to):
+    """(finite adds, bytes) of one tree: the pairs of non-identity lanes
+    over every level, and the leaves read and roots written at 48 bytes a
+    coordinate."""
+    import torch
+
+    live = (p.z != 0).any(0).movedim(axis - 1 if axis > 0 else axis, -1)
+    n = live.shape[-1]
+    width = to << (-(-n // to) - 1).bit_length()
+    live = torch.cat([live, live.new_zeros(live.shape[:-1] + (width - n,))], -1)
+    adds = 0
+    while width > to:
+        width //= 2
+        adds += int((live[..., :width] & live[..., width:]).sum())
+        live = live[..., :width] | live[..., width:]
+    groups = live.numel() // to
+    return adds, 3 * COORD_BYTES * groups * (n + to)
+
+
+def _tree_reduction(buckets, weights, c, signed, peak):
+    """g1_tree_reduce over the trees of one BGMW reduction (rows, columns
+    and spare slots in one launch, the two bit-partial-sum trees in a
+    second, the fold after K4 in a third), each launch's inputs recorded
+    from one run of the reduction: kernel against plain twin on them,
+    exact; the kernel's time is that of all the launches, replayed back
+    to back on a card kept busy while they are queued (host time between
+    launches is not counted); the plain time is the twin's over the same
+    trees."""
+    import torch
+
+    from fourier_tpu_torch.ops import curve as cv
+    from fourier_tpu_torch.ops import kernels
+    from fourier_tpu_torch.ops import msm_fused as mf
+    from fourier_tpu_torch.ops.curve import G1Jac
+
+    Bpow = 1 << (c - 1) if signed else 1 << c
+    real = kernels.g1_tree_reduce
+    launches = []
+
+    def recorded(trees):
+        launches.append(list(trees))
+        return real(trees)
+
+    kernels.g1_tree_reduce = recorded
+    try:
+        terms = mf._weighted_sums_factored(buckets, weights, c, Bpow)
+        L, K, R = terms.x.shape
+        res = kernels.horner_2k(G1Jac(*(t.reshape(L, K * R) for t in terms)), width=R)
+        cv.fold_small(res)
+    finally:
+        kernels.g1_tree_reduce = real
+    trees = [tree for launch in launches for tree in launch]
+    got = [root for launch in launches for root in real(launch)]
+    plain_ms, plain = cuda_ms(lambda: [kernels.g1_tree_reduce_plain(*t) for t in trees], 1)
+    err = max(max_abs_err(a, b) for a, b in zip(got, plain))
+    reps = 5
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)           # ~50 ms: the queue fills meanwhile
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for launch in launches:
+            real(launch)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    work = [_tree_work(*t) for t in trees]
+    adds = sum(a for a, _ in work)
+    shapes = "; ".join(", ".join(f"{tuple(p.x.shape[1:])}/{axis}->{to}" for p, axis, to in launch)
+                       for launch in launches)
+    return (err, ms, plain_ms, f"{len(launches)} launches, {len(trees)} trees of one reduction "
+            f"({shapes}; {adds} finite adds)",
+            bound(adds * PRODUCTS["add"] * MADS_PER_PRODUCT, sum(b for _, b in work), peak))
 
 
 def _main_path_shapes(device, peak):
@@ -287,18 +400,24 @@ def _main_path_shapes(device, peak):
                                  torch.zeros(rows, dtype=torch.bool, device=device)))
     inf = torch.zeros(rows, dtype=torch.bool, device=device)
     digits, neg = mf.bgmw_digits_for(rand_fr(T, gen, device), c, W)
-    index, start, count, _ = mf.bucket_runs(inf, digits, c, neg)
+    index, start, count, weights = mf.bucket_runs(inf, digits, c, neg)
     kernels.accumulate(table, index, start, count)
-    ms, got = cuda_ms(lambda: kernels.accumulate(table, index, start, count), 3)
-    plain_ms, plain = cuda_ms(lambda: kernels.accumulate_plain(table, index, start, count), 1)
-    # no row here is at infinity: a run of k rows spends k - 1 mixed adds
+    ms, buckets = cuda_ms(lambda: kernels.accumulate(table, index, start, count), 3)
+    plain_ms, plain = cuda_ms(lambda: kernels.accumulate_plain(table, index, start, count,
+                                                               piece=kernels.PIECE), 1)
+    # the function's work: no row here is at infinity, and a run of k rows
+    # needs k - 1 mixed adds (the pieces' second pass is the kernel's own)
     adds = int((count.to(torch.int64).clamp(min=1) - 1).sum())
     nbytes = (table.numel() + index.numel() + 2 * start.numel()) * 4 \
         + 3 * COORD_BYTES * start.numel()
-    results["accumulate"] = (max_abs_err(got, plain), ms, plain_ms,
-                             f"{rows} rows -> {start.shape[0]} slots",
+    results["accumulate"] = (max_abs_err(buckets, plain), ms, plain_ms,
+                             f"{rows} rows -> {start.shape[0]} slots, piece {kernels.PIECE}",
                              bound(adds * PRODUCTS["madd"] * MADS_PER_PRODUCT, nbytes, peak))
-    del table, index, start, count, got, plain
+    del table, index, start, count, plain
+
+    # the trees of one BGMW reduction of those buckets
+    results["g1_tree_reduce"] = _tree_reduction(buckets, weights, c, neg is not None, peak)
+    del buckets, weights
 
     # K2: the widest level of the bucket-reduction trees
     n = 1 << (c - 1)
@@ -491,7 +610,9 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
     (every proof must verify, a repeated commitment must repeat) and stop
     it.  Returns (launch totals of the run, the server's setup seconds,
     its log lines, the commitment of `fixed_row` (wire strings) at i = 0
-    or None).  `setup_kernels` must have run during the server's setup."""
+    or None, the launches of its first workerCommit and workerOpen).
+    `setup_kernels` must have run during the server's setup; a BGMW
+    workerCommit launches no K2 and at most 6 tree kernels."""
     from fourier_tpu_torch.runtime import wire
 
     port = _free_port()
@@ -500,6 +621,7 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
     server = ServerProcess(port, extra_args, env)
     timings = []
     fixed_com = None
+    per_request = {}
 
     def rpc(method, params=None, expect_device=False):
         n_before = len(server.launches)
@@ -543,10 +665,15 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
             row = rpc("fft", {"poly": f, "left": True, "inverse": True}, True)[0]["poly"]
             rows.append(row)
             out, launches = rpc("workerCommit", {"i": i, "poly": row}, True)
-            for k in ("accumulate", "g1_add", "horner_2k"):
+            for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
                 check(launches[k] > 0, f"workerCommit ran no {k} kernel")
+            check(launches["g1_add"] == 0 and launches["g1_tree_reduce"] <= 6,
+                  f"workerCommit launched K2 {launches['g1_add']} times and the tree kernel "
+                  f"{launches['g1_tree_reduce']} times (expected 0 and at most 6)")
+            per_request.setdefault("workerCommit", launches)
             com = out["commitment"]
-            opened = rpc("workerOpen", {"i": i, "poly": row, "x": alpha}, True)[0]
+            opened, launches = rpc("workerOpen", {"i": i, "poly": row, "x": alpha}, True)
+            per_request.setdefault("workerOpen", launches)
             ok = rpc("workerVerify", {"i": i, "alpha": alpha, "proof": opened["proof"],
                                       "eval": opened["eval"], "commitment": com})[0]
             check(ok["valid"] is True, f"worker {i}: proof rejected")
@@ -569,14 +696,16 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
         for k, v in rec["launches"].items():
             totals[k] += v
     log(f"{label}: scale {SCALE} / machines 1 served and verified; kernel launches {totals}")
-    return totals, _log_seconds(server.lines, "setup took"), server.lines, fixed_com
+    return (totals, _log_seconds(server.lines, "setup took"), server.lines, fixed_com,
+            per_request)
 
 
 def phase4_main_path(card):
-    totals, setup_s, _, _ = drive_server("phase 4", card)
-    for k in ("accumulate", "g1_add", "g1_dbl", "horner_2k"):
+    totals, setup_s, _, _, per_request = drive_server("phase 4", card)
+    for k in ("accumulate", "g1_tree_reduce", "g1_dbl", "horner_2k"):
         check(totals[k] > 0, f"the main path launched no {k} kernel")
-    return totals, setup_s
+    check(totals["g1_add"] == 0, f"the main path launched K2 {totals['g1_add']} times")
+    return totals, setup_s, per_request
 
 
 # -- phases 5 and 6 -------------------------------------------------------------------
@@ -623,10 +752,10 @@ def phase5_files(card, setup_in_memory_s):
             f"{time.perf_counter() - t0:.3f} s")
 
         limbs, row_strs = _fixed_row(T)
-        totals, setup_s, lines, served = drive_server(
+        totals, setup_s, lines, served, _ = drive_server(
             "phase 5", card, ["--setup-path", setup_path, "--precompute-path", pre_path],
             env={"FOURIER_LOG": "debug"}, fixed_row=row_strs, setup_kernels=())
-        for k in ("accumulate", "g1_add", "horner_2k"):
+        for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
             check(totals[k] > 0, f"the file-loaded server launched no {k} kernel")
         log(f"phase 5: server setup from files {setup_s:.3f} s (reading the setup file "
             f"{_log_seconds(lines, 'Reading trusted setup'):.3f} s, loading the "
@@ -691,7 +820,7 @@ def phase6_tableless(b, limbs):
     finally:
         b.settings.precompute.u_rows[0] = table
     check(tableless == tabled, "tableless commit/open differs from the tabled bytes")
-    for k in ("accumulate", "g1_add", "horner_2k"):
+    for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
         check(big[k] > 0, f"the tableless MSM launched no {k} kernel")
     log(f"phase 6: tableless equals tabled at T = {limbs.shape[1]}; launches {big}")
 
@@ -741,7 +870,7 @@ def main() -> int:
         timed_phase("phase 2", phase2_transcript, "cuda")
         timed_phase("phase 3", phase3_oracle, "cuda")
         torch.cuda.empty_cache()
-        served, setup_s = timed_phase("phase 4", phase4_main_path, card)
+        served, setup_s, per_request = timed_phase("phase 4", phase4_main_path, card)
         from_files, backend, limbs = timed_phase("phase 5", phase5_files, card, setup_s)
         tableless, naive = timed_phase("phase 6", phase6_tableless, backend, limbs)
         del backend
@@ -755,14 +884,18 @@ def main() -> int:
              "tableless_T2^19": tableless, "msm_naive_s4": naive}
     for path, counts in paths.items():
         log(f"launches on path {path}: {dict((k, counts[k]) for k in KERNEL_INFO)}")
+    for method, counts in per_request.items():
+        log(f"launches per {method} (phase 4): {dict((k, counts[k]) for k in KERNEL_INFO)}")
     log(f"whole run {time.perf_counter() - t_start:.3f} s")
     # `launches` is the count on the first path (in the order above) that
     # runs the kernel, named by `launches_path`; every path's own count is
-    # in `launches_by_path`.
+    # in `launches_by_path`, and one workerCommit's and workerOpen's of the
+    # in-memory server in `launches_per_request`.
     first = {k: next(p for p, c in paths.items() if c[k] > 0) for k in KERNEL_INFO}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": paths[first[name]][name], "launches_path": first[name],
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "launches_per_request": {m: c[name] for m, c in per_request.items()},
                 "max_abs_err": results[name][0],
                 "ms": results[name][1], "plain_ms": results[name][2],
                 "bound_ms": results[name][4][0], "bound_by": results[name][4][1],

@@ -66,6 +66,13 @@ def dbl(p: G1Jac) -> G1Jac:
     return G1Jac(x3, y3, z3)
 
 
+def _doubling_branch(same, p: G1Jac, out: G1Jac) -> G1Jac:
+    """dbl(p) on the lanes where the addition met the same finite point,
+    `out` elsewhere (lanes with an identity operand are selected after);
+    the doubling is computed only when some lane takes it."""
+    return _where(same, dbl(p), out) if bool(same.any()) else out
+
+
 def add(p: G1Jac, q: G1Jac) -> G1Jac:
     """Complete Jacobian + Jacobian addition via selects."""
     f = FP
@@ -87,8 +94,10 @@ def add(p: G1Jac, q: G1Jac) -> G1Jac:
     z3 = f.mul(f.sub(f.sub(f.square(f.add(p.z, q.z)), z1z1), z2z2), h)
     # h == 0, rr == 0: same point, take the doubling; h == 0, rr != 0:
     # inverse pair, z3 = 0 falls out of the formula.
-    out = _where(f.is_zero(h) & f.is_zero(rr), dbl(p), G1Jac(x3, y3, z3))
-    return _where(f.is_zero(p.z), q, _where(f.is_zero(q.z), p, out))
+    p_inf, q_inf = f.is_zero(p.z), f.is_zero(q.z)
+    same = f.is_zero(h) & f.is_zero(rr) & ~p_inf & ~q_inf
+    out = _doubling_branch(same, p, G1Jac(x3, y3, z3))
+    return _where(p_inf, q, _where(q_inf, p, out))
 
 
 def madd(p: G1Jac, q: G1Aff) -> G1Jac:
@@ -109,9 +118,11 @@ def madd(p: G1Jac, q: G1Aff) -> G1Jac:
     yj = f.mul(p.y, j)
     y3 = f.sub(f.mul(rr, f.sub(v, x3)), f.add(yj, yj))
     z3 = f.sub(f.sub(f.square(f.add(p.z, h)), z1z1), hh)
-    out = _where(f.is_zero(h) & f.is_zero(rr), dbl(p), G1Jac(x3, y3, z3))
+    p_inf = f.is_zero(p.z)
+    out = _doubling_branch(f.is_zero(h) & f.is_zero(rr) & ~p_inf & ~q.inf, p,
+                           G1Jac(x3, y3, z3))
     one = f.broadcast_const("one_mont", p.z.shape[1:], p.z.device)
-    out = _where(f.is_zero(p.z), G1Jac(q.x, q.y, one), out)
+    out = _where(p_inf, G1Jac(q.x, q.y, one), out)
     return _where(q.inf, p, out)
 
 
@@ -207,43 +218,40 @@ def _pad_last(p: G1Jac, pad: int) -> G1Jac:
     return G1Jac(*(torch.cat([c, z], dim=-1) for c in p))
 
 
-def tree_reduce_last(p: G1Jac, to: int = 1) -> G1Jac:
-    """Halving-tree reduction of the last axis down to `to` lanes."""
-    n = p.x.shape[-1]
+def halving_tree(p: G1Jac, axis: int = -1, to: int = 1, add=add) -> G1Jac:
+    """The reference's halving tree over `axis`: padded with identities to
+    to << k lanes, then lane i += lane i + half until `to` lanes remain.
+    `add` is one level's batched addition (the plain formula, or K2)."""
+    n = p.x.shape[axis]
     if n <= to:
         return p
-    k = (-(-n // to) - 1).bit_length()
-    target = to << k
-    if target != n:
-        p = _pad_last(p, target - n)
-        n = target
-    while n > to:
-        half = n // 2
-        p = add_fast(G1Jac(*(c[..., :half] for c in p)),
-                     G1Jac(*(c[..., half:] for c in p)))
-        n = half
+    width = to << (-(-n // to) - 1).bit_length()
+    if width != n:
+        shape = list(p.x.shape)
+        shape[axis] = width - n
+        z = torch.zeros(shape, dtype=torch.int64, device=p.x.device)
+        p = G1Jac(*(torch.cat([c, z], dim=axis) for c in p))
+    while width > to:
+        width //= 2
+        p = add(G1Jac(*(c.narrow(axis, 0, width) for c in p)),
+                G1Jac(*(c.narrow(axis, width, width) for c in p)))
     return p
 
 
+def tree_reduce_last(p: G1Jac, to: int = 1) -> G1Jac:
+    """Halving-tree reduction of the last axis down to `to` lanes (one
+    g1_tree_reduce launch on a CUDA tensor)."""
+    from . import kernels
+
+    return kernels.g1_tree_reduce([(p, -1, to)])[0]
+
+
 def tree_reduce_axis(p: G1Jac, axis: int) -> G1Jac:
-    """Halving-tree reduction over any axis by slicing; the axis is
-    removed from the result shape."""
-    if axis < 0:
-        axis += p.x.ndim
-    n = p.x.shape[axis]
-    pow2 = 1 << (n - 1).bit_length() if n > 1 else 1
-    if pow2 != n:
-        shape = list(p.x.shape)
-        shape[axis] = pow2 - n
-        z = torch.zeros(shape, dtype=torch.int64, device=p.x.device)
-        p = G1Jac(*(torch.cat([c, z], dim=axis) for c in p))
-        n = pow2
-    while n > 1:
-        half = n // 2
-        p = add_fast(G1Jac(*(c.narrow(axis, 0, half) for c in p)),
-                     G1Jac(*(c.narrow(axis, half, half) for c in p)))
-        n = half
-    return G1Jac(*(c.squeeze(axis) for c in p))
+    """Halving-tree reduction over any axis; the axis is removed from the
+    result shape."""
+    from . import kernels
+
+    return G1Jac(*(c.squeeze(axis) for c in kernels.g1_tree_reduce([(p, axis, 1)])[0]))
 
 
 def fold_small(p: G1Jac) -> G1Jac:

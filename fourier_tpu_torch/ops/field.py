@@ -12,7 +12,9 @@ evaluation-form opening and the affine conversions run them.  Point
 arithmetic on a CUDA device goes through the hand-written kernels in
 ``ops.kernels`` instead.  The TPU formulation (Kogge-Stone carries, the
 wide/rolled switch, the padded lazy domain) has no counterpart: a mul is
-an interleaved word-serial Montgomery product with plain carry loops.
+a Montgomery product with plain carry loops, formed from whole limb
+products for small batches (few, wide ops) and word-serially for large
+ones (no [L, L, batch] temporary).
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from ..constants import FP_LIMBS, FR_LIMBS, LIMB_BITS, LIMB_MASK, P, R
 from .limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
 
 MASK = LIMB_MASK
+# Batches of at most this many lanes multiply through whole [L, L, batch]
+# limb products (Field._mul_whole); larger ones word-serially (_mul_cios).
+WHOLE_PRODUCT_LANES = 64
 
 
 def batch_inverse_host(values: list[int], modulus: int) -> list[int]:
@@ -70,8 +75,17 @@ class Field:
             "one_mont": int_to_limbs(self.mont_r, n_limbs),
             "r2": int_to_limbs(self.mont_r2, n_limbs),
             "one0": int_to_limbs(1, n_limbs),
+            # per limb: MASK - N (+1 at limb 0), so x + this = x - N + 2^(16L)
+            "negmod": (MASK - int_to_limbs(modulus, n_limbs).astype("int64")
+                       + int_to_limbs(1, n_limbs).astype("int64")),
+            # per limb: MASK (+1 at limb 0), so a - b + this = a - b + 2^(16L)
+            "radix": (MASK + int_to_limbs(1, n_limbs).astype("int64")),
+            # -N^-1 mod 2^(16L)
+            "nprime": int_to_limbs((-pow(modulus, -1, 1 << radix_bits)) % (1 << radix_bits),
+                                   n_limbs),
         }
         self._consts: dict = {}
+        self._pairs: dict = {}
 
     # -- constants -----------------------------------------------------------
 
@@ -98,17 +112,22 @@ class Field:
         Each pass moves every limb's high part one limb up; once no limb
         exceeds 2^16 the remaining one-bit carries are resolved at once:
         limb i passes a carry on iff the nearest limb at or below i that
-        is not 0xFFFF equals 2^16 (a running maximum finds that limb)."""
+        is not 0xFFFF equals 2^16 (a running maximum finds that limb).  On
+        the CPU that step is skipped when no limb equals 2^16 (the usual
+        case; on a card the test would cost a synchronisation)."""
         L = x.shape[0]
-        zero_row = torch.zeros_like(x[:1])
-        cout = torch.zeros_like(x[0])
+        cout = None
         while True:
             hi = x >> LIMB_BITS
-            cout = cout + hi[-1]
-            x = (x & MASK) + torch.cat([zero_row, hi[:-1]])
+            cout = hi[-1] if cout is None else cout + hi[-1]
+            x = x & MASK
+            x[1:].add_(hi[:-1])
             if bits <= 17:
                 break
             bits = max(bits - LIMB_BITS, LIMB_BITS) + 1
+        if x.device.type == "cpu" and not bool((x >> LIMB_BITS).any()):
+            return x, cout
+        zero_row = torch.zeros_like(x[:1])
         idx = torch.arange(L, device=x.device).view((L,) + (1,) * (x.ndim - 1))
         last = torch.where(x == MASK, -1, idx).cummax(dim=0).values
         gen = torch.cat([zero_row, x >> LIMB_BITS])
@@ -118,10 +137,8 @@ class Field:
 
     def _cond_sub(self, x: torch.Tensor) -> torch.Tensor:
         """x - N where x >= N, else x (x normalized, x < 2N)."""
-        comp = _col(MASK - self.const("mod", x.device), x.ndim)
-        one0 = _col(self.const("one0", x.device), x.ndim)
-        d, ge = self._normalize(x + comp + one0)   # x - N + 2^(16L)
-        return torch.where((ge > 0).unsqueeze(0), d, x)
+        d, ge = self._normalize(x + _col(self.const("negmod", x.device), x.ndim))
+        return torch.where((ge > 0).unsqueeze(0), d, x)      # d = x - N + 2^(16L)
 
     # -- basic ops -----------------------------------------------------------
 
@@ -130,10 +147,9 @@ class Field:
         return self._cond_sub(s)
 
     def sub(self, a, b):
-        one0 = _col(self.const("one0", a.device), a.ndim)
-        d, ge = self._normalize(a + (MASK - b) + one0)  # a - b + 2^(16L)
-        mod = _col(self.const("mod", d.device), d.ndim)
-        out, _ = self._normalize(d + mod * (ge == 0).to(d.dtype).unsqueeze(0))
+        d, ge = self._normalize(a - b + _col(self.const("radix", a.device), a.ndim))
+        mod = _col(self.const("mod", d.device), d.ndim)       # d = a - b + 2^(16L)
+        out, _ = self._normalize(d + mod * (1 - ge).unsqueeze(0))
         return out
 
     def neg(self, a):
@@ -157,13 +173,52 @@ class Field:
     # -- multiplication ------------------------------------------------------
 
     def mul(self, a, b):
-        """Montgomery product a*b/2^(16L) mod N, word-serial (CIOS).
+        """Montgomery product a*b/2^(16L) mod N, canonical, for any a <
+        2^(16L) and b < N."""
+        a, b = torch.broadcast_tensors(a, b)
+        if a[0].numel() <= WHOLE_PRODUCT_LANES:
+            return self._mul_whole(a, b)
+        return self._mul_cios(a, b)
+
+    def _columns(self, x, y, cols: int):
+        """Column sums c[k] = sum over i + j = k of x[i] * y[j], k < cols,
+        of [L, ...] limb tensors (broadcasting)."""
+        L = self.L
+        key = (cols, str(x.device))
+        if key not in self._pairs:
+            i, j = torch.meshgrid(torch.arange(L), torch.arange(L), indexing="ij")
+            k = (i + j).reshape(-1)
+            keep = torch.nonzero(k < cols).reshape(-1)
+            self._pairs[key] = (k[keep].to(x.device),
+                                None if keep.numel() == L * L else keep.to(x.device))
+        col, keep = self._pairs[key]
+        prod = x.unsqueeze(1) * y.unsqueeze(0)
+        prod = prod.reshape((L * L,) + prod.shape[2:])
+        if keep is not None:
+            prod = prod.index_select(0, keep)
+        out = torch.zeros((cols,) + prod.shape[1:], dtype=torch.int64, device=x.device)
+        return out.index_add_(0, col, prod)
+
+    def _mul_whole(self, a, b):
+        """The Montgomery product from whole limb products (separated
+        operand scanning): t = a*b, m = t*N' mod 2^(16L), u = t + m*N, and
+        u / 2^(16L) < 2N.  t's columns stay below L * 2^32, so m's column
+        sums stay below 2^58 and u's below 2^38, far inside int64."""
+        L = self.L
+        t = self._columns(a, b, 2 * L)
+        nprime = _col(self.const("nprime", a.device), a.ndim)
+        m, _ = self._normalize(self._columns(t[:L], nprime, L), bits=58)   # mod 2^(16L)
+        mod = _col(self.const("mod", a.device), a.ndim)
+        u, _ = self._normalize(t + self._columns(m, mod, 2 * L), bits=38)
+        return self._cond_sub(u[L:])
+
+    def _mul_cios(self, a, b):
+        """The Montgomery product word-serially (CIOS).
 
         Iteration i adds a[i]*b into the window t[i:i+L], picks m so that
         t[i] + m*N[0] = 0 mod 2^16, adds m*N and moves t[i]'s carry up one
         limb.  Window limbs stay below 2L * 2^33, far inside int64.  The
         result t[L:2L] is < 2N for any a < 2^(16L) and b < N."""
-        a, b = torch.broadcast_tensors(a, b)
         L = self.L
         mod = _col(self.const("mod", a.device), a.ndim)
         t = torch.zeros((2 * L,) + a.shape[1:], dtype=torch.int64, device=a.device)
@@ -172,7 +227,7 @@ class Field:
             win.addcmul_(a[i].unsqueeze(0), b)
             m = ((t[i] & MASK) * self.n0inv) & MASK
             win.addcmul_(mod, m.unsqueeze(0))
-            t[i + 1] += t[i] >> LIMB_BITS
+            t[i + 1].add_(t[i] >> LIMB_BITS)
         res, _ = self._normalize(t[L:], bits=40)
         return self._cond_sub(res)
 

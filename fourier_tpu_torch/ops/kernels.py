@@ -1,16 +1,22 @@
 """The hand-written CUDA kernels of the G1 path, their wrappers and their
 plain PyTorch twins.
 
-| kernel      | source               | replaces (fourier_tpu)                                    |
-|-------------|----------------------|-----------------------------------------------------------|
-| accumulate  | csrc/accumulate.cu   | ops/msm_fused.py:_accum_kernel, ops/pallas_curve.py:_madd_inc_kernel |
-| g1_add      | csrc/g1_add.cu       | ops/pallas_curve.py:_add_inc_kernel                        |
-| g1_dbl      | csrc/g1_dbl.cu       | ops/pallas_curve.py:_dbl_kernel                            |
-| horner_2k   | csrc/horner_2k.cu    | ops/pallas_curve.py:horner_2k                              |
-| g1_madd     | csrc/g1_madd.cu      | ops/pallas_curve.py:_madd_kernel                           |
+| kernel         | source             | replaces (fourier_tpu)                                    |
+|----------------|--------------------|-----------------------------------------------------------|
+| accumulate     | csrc/accumulate.cu | ops/msm_fused.py:_accum_kernel, ops/pallas_curve.py:_madd_inc_kernel |
+| g1_add         | csrc/g1_add.cu     | ops/pallas_curve.py:_add_inc_kernel                        |
+| g1_tree_reduce | csrc/g1_tree.cu    | ops/pallas_curve.py:_add_inc_kernel in the halving trees of ops/curve.py |
+| g1_dbl         | csrc/g1_dbl.cu     | ops/pallas_curve.py:_dbl_kernel                            |
+| horner_2k      | csrc/horner_2k.cu  | ops/pallas_curve.py:horner_2k                              |
+| g1_madd        | csrc/g1_madd.cu    | ops/pallas_curve.py:_madd_kernel                           |
 
 ops/pallas_curve.py:_add_kernel (the complete Jacobian add behind
 pallas_curve.add) computes K2's function on every lane and maps to K2.
+The bucket-reduction trees, one K2 launch a level in the reference's
+form, run through g1_tree_reduce, one launch for up to TREE_MAX_TREES
+independent trees; K2 serves msm_naive's tree.  accumulate cuts each run
+into pieces of at most PIECE rows; its plain twin takes the piece size
+(None: whole runs, the reference's association).
 
 The kernels are built with nvcc for sm_90a at first use, one nvcc per
 source, all started together, then linked into one library in
@@ -39,16 +45,28 @@ from . import curve as cv
 from .curve import G1Aff, G1Jac
 from .field import FP
 
-KERNELS = ("accumulate", "g1_add", "g1_dbl", "horner_2k", "g1_madd")
+KERNELS = ("accumulate", "g1_add", "g1_tree_reduce", "g1_dbl", "horner_2k", "g1_madd")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SOURCES = ("accumulate.cu", "g1_add.cu", "g1_dbl.cu", "horner_2k.cu", "g1_madd.cu",
-            "errors.cu")
+_SOURCES = ("accumulate.cu", "g1_add.cu", "g1_tree.cu", "g1_dbl.cu", "horner_2k.cu",
+            "g1_madd.cu", "errors.cu")
 _HEADERS = ("g1.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+# K1 cuts every run into pieces of at most PIECE rows, one thread a piece.
+# At least 32 keeps each fixed-base setup run (W = 32 rows at c = 8) whole.
+PIECE = 32
+# g1_tree_reduce keeps at most TREE_LANES lanes of a group in shared memory
+# (144 bytes a lane) and folds wider groups while loading them; a block of
+# TREE_THREADS threads owns a group, and one launch carries at most
+# TREE_MAX_TREES trees.
+TREE_LANES = 256
+TREE_THREADS = 64
+TREE_MAX_FAN_LEVELS = 8
+TREE_MAX_TREES = 4
 
 
 class KernelCounters:
@@ -134,13 +152,14 @@ def build() -> ctypes.CDLL:
         _compile_and_link(path)
     lib = ctypes.CDLL(path)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    lib.fk_accumulate.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
+    lib.fk_accumulate.argtypes = [vp] * 5 + [i64, i32, i64] + [vp] * 6
     lib.fk_g1_add.argtypes = [vp] * 9 + [i64, vp, vp]
+    lib.fk_g1_tree_reduce.argtypes = [i32, vp, i32, vp, vp]
     lib.fk_g1_dbl.argtypes = [vp] * 6 + [i64, i32, vp]
     lib.fk_horner_2k.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, vp]
     lib.fk_g1_madd.argtypes = [vp] * 9 + [i64, vp, vp]
-    for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_dbl, lib.fk_horner_2k,
-               lib.fk_g1_madd):
+    for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_tree_reduce, lib.fk_g1_dbl,
+               lib.fk_horner_2k, lib.fk_g1_madd):
         fn.restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
@@ -191,31 +210,59 @@ def unpack_rows(rows: torch.Tensor):
     return limbs[:, :FP_LIMBS].T, limbs[:, FP_LIMBS:].T
 
 
-def accumulate_plain(table, index, start, count) -> G1Jac:
-    """Plain twin of K1: one complete mixed add per step for every slot
-    that still has rows, in run order."""
-    S = start.shape[0]
-    acc = cv.jac_identity((S,), table.device)
-    if S == 0 or index.shape[0] == 0:
+def _runs_plain(table, index, start, count) -> G1Jac:
+    """Every run summed from the identity, one complete mixed add per step
+    over the slots whose run has a row left, in run order."""
+    acc = cv.jac_identity((start.shape[0],), table.device)
+    if start.shape[0] == 0 or index.shape[0] == 0:
         return acc
+    for k in range(int(count.max())):
+        lanes = torch.nonzero(count > k).reshape(-1)
+        e = index[start[lanes] + k]
+        qx, qy = unpack_rows(table[e >> 2])
+        qy = FP.select((e & 2) != 0, FP.neg(qy), qy)
+        new = cv.madd(G1Jac(*(c[:, lanes] for c in acc)), G1Aff(qx, qy, (e & 1) != 0))
+        for c, v in zip(acc, new):
+            c[:, lanes] = v
+    return acc
+
+
+def accumulate_plain(table, index, start, count, piece: int | None = None) -> G1Jac:
+    """Plain twin of K1.  piece=None sums each run whole, in run order (the
+    reference's association).  Otherwise the kernel's: each run is cut into
+    pieces of at most `piece` rows, every piece summed from the identity in
+    run order, then a slot's piece sums added left to right with the
+    complete Jacobian add."""
     index = index.to(torch.int64)
     start = start.to(torch.int64)
     count = count.to(torch.int64)
-    for k in range(int(count.max())):
-        valid = k < count
-        e = index[torch.where(valid, start + k, 0)]
-        qx, qy = unpack_rows(table[e >> 2])
-        qy = FP.select((e & 2) != 0, FP.neg(qy), qy)
-        acc = cv.madd(acc, G1Aff(qx, qy, ((e & 1) != 0) | ~valid))
+    if piece is None:
+        return _runs_plain(table, index, start, count)
+    S = start.shape[0]
+    pieces = (count + (piece - 1)) // piece
+    first = torch.cumsum(pieces, 0) - pieces
+    slot = torch.repeat_interleave(torch.arange(S, device=start.device), pieces)
+    k = torch.arange(slot.shape[0], device=start.device) - first[slot]
+    sums = _runs_plain(table, index, start[slot] + k * piece,
+                       torch.clamp(count[slot] - k * piece, max=piece))
+    acc = cv.jac_identity((S,), table.device)
+    for j in range(int(pieces.max()) if S else 0):
+        lanes = torch.nonzero(pieces > j).reshape(-1)
+        q = G1Jac(*(c[:, first[lanes] + j] for c in sums))
+        new = q if j == 0 else cv.add(G1Jac(*(c[:, lanes] for c in acc)), q)
+        for c, v in zip(acc, new):
+            c[:, lanes] = v
     return acc
 
 
 def accumulate(table, index, start, count) -> G1Jac:
     """K1: out[s] = the sum of the rows index[start[s] : start[s] + count[s]]
-    of the packed table, added in order to the identity.
+    of the packed table, each run cut into pieces of at most PIECE rows
+    (see accumulate_plain; a run of at most PIECE rows is summed whole).
 
     table: int32 [rows, 24]; index: int32 entries (row << 2) | (negate << 1)
-    | infinity; start, count: int32 [S].  Returns int64 [24, S] limbs."""
+    | infinity; start, count: int32 [S], the runs disjoint ranges of index.
+    Returns int64 [24, S] limbs."""
     dev = table.device
     if table.dtype != torch.int32 or table.ndim != 2 or table.shape[1] != FP_LIMBS:
         raise ValueError(f"table must be int32 [rows, {FP_LIMBS}]")
@@ -226,15 +273,21 @@ def accumulate(table, index, start, count) -> G1Jac:
         raise ValueError("start and count differ in shape")
     S = start.shape[0]
     if dev.type == "cpu":
-        return accumulate_plain(table, index, start, count)
+        return accumulate_plain(table, index, start, count, piece=PIECE)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = build()
     table, index = table.contiguous(), index.contiguous()
     start, count = start.contiguous(), count.contiguous()
+    piece_end = torch.cumsum((count + (PIECE - 1)) // PIECE, 0, dtype=torch.int32)
+    # disjoint runs hold at most len(index) rows: a bound on the pieces
+    # that needs no read of piece_end on the host
+    max_pieces = -(-index.shape[0] // PIECE) + S
+    partial = torch.empty((3 * FP_LIMBS // 2, max_pieces), dtype=torch.int32, device=dev)
     out = _empty_like_coords(S, dev)
     rc = lib.fk_accumulate(
-        _ptr(table), _ptr(index), _ptr(start), _ptr(count), S, *map(_ptr, out),
+        _ptr(table), _ptr(index), _ptr(start), _ptr(count), _ptr(piece_end), S, PIECE,
+        max_pieces, _ptr(partial), *map(_ptr, out),
         _ptr(COUNTERS.collision_buffer("accumulate", dev)), _stream(dev))
     COUNTERS.launches["accumulate"] += 1
     _check(lib, "accumulate", rc)
@@ -270,6 +323,105 @@ def g1_add(p: G1Jac, q: G1Jac) -> G1Jac:
     else:
         raise ValueError(f"unsupported device {dev}")
     return G1Jac(*(c.reshape(shape) for c in out))
+
+
+# -- g1_tree_reduce -------------------------------------------------------------------
+
+def g1_tree_reduce_plain(p: G1Jac, axis: int = -1, to: int = 1) -> G1Jac:
+    """Plain twin of g1_tree_reduce: the reference's halving loop over the
+    complete add."""
+    return cv.halving_tree(p, axis, to)
+
+
+def _tree_layout(p: G1Jac, axis: int):
+    """(coordinates, groups0, groups1, strides) for the tree kernel: the
+    dims other than the limbs and `axis` as at most two group dims, size-1
+    dims dropped and neighbours merged where every coordinate's strides
+    allow (coordinates that still need more are made contiguous); strides
+    are (limb, group 0, group 1, leaf) for x, y and z in turn."""
+    coords = list(p)
+    for _ in range(2):
+        merged = []
+        for d, size in enumerate(coords[0].shape):
+            if d in (0, axis) or size == 1:
+                continue
+            strides = tuple(c.stride(d) for c in coords)
+            if merged and all(a == b * size for a, b in zip(merged[-1][1], strides)):
+                merged[-1] = (merged[-1][0] * size, strides)
+            else:
+                merged.append((size, strides))
+        if len(merged) <= 2:
+            break
+        coords = [c.contiguous() for c in coords]
+    merged += [(1, (0, 0, 0))] * (2 - len(merged))
+    strides = [v for k, c in enumerate(coords)
+               for v in (c.stride(0), merged[0][1][k], merged[1][1][k], c.stride(axis))]
+    return coords, merged[0][0], merged[1][0], strides
+
+
+def _tree_spec(p: G1Jac, axis: int, to: int):
+    if to < 1:
+        raise ValueError("to must be >= 1")
+    shape = p.x.shape
+    for c in p:
+        if c.dtype != torch.int64 or c.shape[0] != FP_LIMBS or c.shape != shape:
+            raise ValueError(f"expected int64 [{FP_LIMBS}, ...] limbs of one shape")
+    if any(c.device != p.x.device for c in p):
+        raise ValueError("coordinates on different devices")
+    if axis < 0:
+        axis += len(shape)
+    if not 0 < axis < len(shape):
+        raise ValueError(f"axis {axis} is not a batch axis of {tuple(shape)}")
+    return axis
+
+
+def g1_tree_reduce(trees) -> list:
+    """Halving-tree reductions of independent point batches, one launch
+    for all: for each (p, axis, to), `axis` is padded with identities to
+    to << k lanes and lane i takes lane i + half at every level, the
+    reference's pairing.  Each result is p's shape with the axis cut to
+    `to` (p itself where the axis has at most `to` lanes)."""
+    specs = [(p, _tree_spec(p, axis, to), to) for p, axis, to in trees]
+    out = [p if p.x.shape[axis] <= to else None for p, axis, to in specs]
+    todo = [i for i, r in enumerate(out) if r is None]
+    if not todo:
+        return out
+    dev = specs[todo[0]][0].x.device
+    if any(specs[i][0].x.device != dev for i in todo):
+        raise ValueError("trees on different devices")
+    if dev.type == "cpu":
+        for i in todo:
+            out[i] = g1_tree_reduce_plain(*specs[i])
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if len(todo) > TREE_MAX_TREES:
+        raise ValueError(f"at most {TREE_MAX_TREES} trees a launch")
+    desc, keep = [], []
+    for i in todo:
+        p, axis, to = specs[i]
+        n = p.x.shape[axis]
+        if to > TREE_LANES:
+            raise ValueError(f"to = {to} exceeds {TREE_LANES} lanes")
+        width = to << (-(-n // to) - 1).bit_length()         # the padded width
+        lanes = min(width, TREE_LANES)
+        fan_levels = (width // lanes).bit_length() - 1
+        if fan_levels > TREE_MAX_FAN_LEVELS:
+            raise ValueError(f"{n} leaves exceed {TREE_LANES << TREE_MAX_FAN_LEVELS}")
+        coords, groups0, groups1, strides = _tree_layout(p, axis)
+        roots = _empty_like_coords(groups0 * groups1 * to, dev)
+        keep.append((coords, roots))
+        desc += [*map(_ptr, coords), *map(_ptr, roots), *strides, groups0, groups1, n, to,
+                 lanes, fan_levels]
+        batch = [s for d, s in enumerate(p.x.shape) if d not in (0, axis)]
+        out[i] = G1Jac(*(c.reshape(FP_LIMBS, *batch, to).movedim(-1, axis) for c in roots))
+    lib = build()
+    rc = lib.fk_g1_tree_reduce(len(todo), (ctypes.c_int64 * len(desc))(*desc), TREE_THREADS,
+                               _ptr(COUNTERS.collision_buffer("g1_tree_reduce", dev)),
+                               _stream(dev))
+    COUNTERS.launches["g1_tree_reduce"] += 1
+    _check(lib, "g1_tree_reduce", rc)
+    return out
 
 
 # -- K5 g1_madd ---------------------------------------------------------------------

@@ -34,10 +34,12 @@ def _all_window_digits(scalars, c: int, n_windows: int):
     return torch.stack(out)
 
 
-def _bit_partial_sums(buckets: G1Jac, c: int) -> G1Jac:
-    """[L, B] buckets -> [L, c, R] bit partial sums (R <= 32 residual
-    lanes): summing lanes over R gives S_j = sum over b with bit j set of
-    B_b, and sum_b b * B_b = sum_j 2^j S_j."""
+def _bit_partial_leaves(buckets: G1Jac, c: int) -> G1Jac:
+    """[L, B] buckets -> the [L, c, B] leaves of their bit partial sums:
+    row j holds bucket b where bit j of b is set and the identity (z = 0)
+    elsewhere; x and y are broadcast views.  Reduced over B to R <= 32
+    residual lanes, row j sums to S_j = sum over b with bit j set of B_b,
+    and sum_b b * B_b = sum_j 2^j S_j."""
     n_buckets = buckets.x.shape[-1]
     c_eff = max(c, 1)
     idx = torch.arange(n_buckets, device=buckets.x.device)
@@ -45,9 +47,7 @@ def _bit_partial_sums(buckets: G1Jac, c: int) -> G1Jac:
     masks = ((idx[None, :] >> bits[:, None]) & 1).bool()          # [c, B]
     shape = (FP_LIMBS, c_eff, n_buckets)
     bz = torch.where(masks[None], buckets.z[:, None, :], 0)       # z=0: identity
-    return cv.tree_reduce_last(
-        G1Jac(buckets.x[:, None, :].expand(shape),
-              buckets.y[:, None, :].expand(shape), bz), to=32)
+    return G1Jac(buckets.x[:, None, :].expand(shape), buckets.y[:, None, :].expand(shape), bz)
 
 
 def _horner_2k(terms: G1Jac) -> G1Jac:
@@ -85,7 +85,7 @@ def _bit_length(scalars) -> int:
 def msm_naive(points: G1Aff, scalars) -> G1Jac:
     """The MSM of tiny n: every lane runs double-and-add on its own point
     from the scalars' top bit down (K3 doubles, K5 mixed-adds the affine
-    point where the bit is set), then one tree sum (K2)."""
+    point where the bit is set), then one tree sum, a K2 launch a level."""
     n = points.x.shape[-1]
     acc = cv.jac_identity((n,), points.x.device)
     for k, i in enumerate(reversed(range(_bit_length(scalars)))):
@@ -93,7 +93,7 @@ def msm_naive(points: G1Aff, scalars) -> G1Jac:
             acc = cv.dbl_fast(acc)
         bit = ((scalars[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1).bool()
         acc = cv.madd_fast(acc, G1Aff(points.x, points.y, points.inf | ~bit))
-    out = cv.tree_reduce_last(acc, 1)
+    out = cv.halving_tree(acc, -1, 1, add=cv.add_fast)
     return G1Jac(*(c[..., 0] for c in out))
 
 

@@ -203,36 +203,46 @@ def _weighted_sums_factored(buckets: G1Jac, weights, c: int, B: int) -> G1Jac:
     sum_b b * B_b = H * sum_g g * R_g + sum_h h * C_h over the row sums
     R_g and column sums C_h, so bits below log2(H) reduce over C and the
     rest over R; the spare slots keep the masked form of their dynamic
-    weights, and their residual lanes join the same [c, R] terms."""
+    weights, and their residual lanes join the same [c, R] terms.  The
+    row, column and spare trees share one tree-kernel launch, the two
+    bit-partial-sum trees another."""
     h_bits = c // 2
     H = 1 << h_bits
     Gg = B >> h_bits
     main = G1Jac(*(t[..., :B].reshape(FP_LIMBS, Gg, H) for t in buckets))
-    rows = cv.tree_reduce_axis(main, -1)          # [L, Gg]  R_g = sum over h
-    cols = cv.tree_reduce_axis(main, -2)          # [L, H]   C_h = sum over g
-    low = msm_mod._bit_partial_sums(cols, h_bits)
-    high = msm_mod._bit_partial_sums(rows, c - h_bits)
+    trees = [(main, -1, 1), (main, -2, 1)]       # R_g = sum over h, C_h = sum over g
+    if buckets.x.shape[-1] > B:
+        spare = G1Jac(*(t[..., B:] for t in buckets))
+        trees.append((_weighted_partial_leaves(spare, weights[B:], c), -1, 32))
+    sums = kernels.g1_tree_reduce(trees)
+    rows, cols = (G1Jac(*(t.squeeze(axis) for t in p)) for p, axis in zip(sums, (-1, -2)))
+    low, high = kernels.g1_tree_reduce(
+        [(msm_mod._bit_partial_leaves(cols, h_bits), -1, 32),
+         (msm_mod._bit_partial_leaves(rows, c - h_bits), -1, 32)])
     r_main = max(low.x.shape[-1], high.x.shape[-1])
     low = _pad_lanes(low, r_main)
     high = _pad_lanes(high, r_main)
     terms = G1Jac(*(torch.cat([a, b], dim=-2) for a, b in zip(low, high)))
-    if buckets.x.shape[-1] == B:
+    if len(sums) == 2:
         return terms
-    spare = G1Jac(*(t[..., B:] for t in buckets))
-    sp_terms = _weighted_partial_sums(spare, weights[B:], c)
-    return G1Jac(*(torch.cat([a, b], dim=-1) for a, b in zip(terms, sp_terms)))
+    return G1Jac(*(torch.cat([a, b], dim=-1) for a, b in zip(terms, sums[2])))
+
+
+def _weighted_partial_leaves(buckets: G1Jac, weights, c: int) -> G1Jac:
+    """[L, ..., B'] buckets with per-slot weights [..., B'] -> the
+    [L, ..., c, B'] leaves of their bit partial sums (bucket s in row j
+    where bit j of its weight is set, the identity elsewhere)."""
+    bits = torch.arange(c, device=weights.device)
+    masks = ((weights[..., None, :] >> bits[:, None]) & 1).bool()  # [..., c, B']
+    shape = buckets.x.shape[:-1] + (c, buckets.x.shape[-1])
+    return G1Jac(buckets.x.unsqueeze(-2).expand(shape), buckets.y.unsqueeze(-2).expand(shape),
+                 torch.where(masks[None], buckets.z.unsqueeze(-2), 0))
 
 
 def _weighted_partial_sums(buckets: G1Jac, weights, c: int) -> G1Jac:
     """[L, ..., B'] buckets with per-slot weights [..., B'] -> [L, ..., c, R]
     bit partial sums."""
-    bits = torch.arange(c, device=weights.device)
-    masks = ((weights[..., None, :] >> bits[:, None]) & 1).bool()  # [..., c, B']
-    shape = buckets.x.shape[:-1] + (c, buckets.x.shape[-1])
-    return cv.tree_reduce_last(
-        G1Jac(buckets.x.unsqueeze(-2).expand(shape),
-              buckets.y.unsqueeze(-2).expand(shape),
-              torch.where(masks[None], buckets.z.unsqueeze(-2), 0)), to=32)
+    return cv.tree_reduce_last(_weighted_partial_leaves(buckets, weights, c), to=32)
 
 
 def bgmw_reduce(buckets: G1Jac, weights, c: int, signed: bool) -> G1Jac:

@@ -135,6 +135,52 @@ def test_trees_match_jax(lanes):
     assert tcv.jac_to_int_points(tcv.fold_small(small_t)) == [total]
 
 
+@pytest.mark.parametrize("axis,to", [(-1, 1), (-1, 4), (-2, 1)])
+def test_tree_kernel_twin_matches_jax(lanes, axis, to):
+    """g1_tree_reduce's plain twin on a [24, 4, 13] batch (13 leaves pad
+    to 16, the lane plan's identities inside) equals the reference's
+    tree_reduce_last / tree_reduce_axis and the port's dispatchers."""
+    ps, qs = lanes
+    jp, _, _, tp, _, _ = _operands(ps[:52], qs[:52])
+    jgrid = jcv.G1Jac(*(c.reshape(c.shape[0], 4, 13) for c in jp))
+    tgrid = tcv.G1Jac(*(c.reshape(c.shape[0], 4, 13) for c in tp))
+    got = kernels.g1_tree_reduce_plain(tgrid, axis, to)
+    if axis == -1:
+        want, dispatched = jcv.tree_reduce_last(jgrid, to=to), tcv.tree_reduce_last(tgrid, to)
+    else:
+        got = tcv.G1Jac(*(c.squeeze(axis) for c in got))
+        want, dispatched = jcv.tree_reduce_axis(jgrid, axis), tcv.tree_reduce_axis(tgrid, axis)
+    _same(want, got)
+    _same(want, dispatched)
+
+
+def test_tree_kernel_layout_reads_views():
+    """The strides g1_tree_reduce hands its kernel address the leaves of
+    sliced, broadcast and permuted views: as_strided over each
+    coordinate's storage rebuilds the logical [24, groups0, groups1, n]."""
+    base = torch.arange(24 * 5 * 3 * 7, dtype=torch.int64).reshape(24, 5, 3, 7)
+    wide = torch.arange(24 * 2 * 3 * 4 * 5, dtype=torch.int64).reshape(24, 2, 3, 4, 5)
+    cases = [
+        (tcv.G1Jac(base, base, base.clone()), -1),
+        (tcv.G1Jac(base[:, :, :1].expand(24, 5, 3, 7), base, base[:, 1:4].clone()[:, :1]
+                   .expand(24, 5, 3, 7)), -1),
+        (tcv.G1Jac(base[:, 1:4, :, ::2], base[:, :3, :, :4], base[:, 2:, :, 3:]), -2),
+        (tcv.G1Jac(base, base, base), 1),
+        (tcv.G1Jac(wide[:, :, :1].expand(24, 2, 3, 4, 5), wide, torch.cat([wide, wide], 3)[:, :, :, ::2]),
+         -2),
+        (tcv.G1Jac(wide[:, :, :, :1].expand(24, 2, 3, 4, 5), wide.transpose(1, 3)
+                   .transpose(1, 3), wide.permute(0, 2, 1, 3, 4).contiguous()
+                   .permute(0, 2, 1, 3, 4)), -1),
+    ]
+    for p, axis in cases:
+        coords, g0, g1, strides = kernels._tree_layout(p, axis % p.x.ndim)
+        n = p.x.shape[axis]
+        for k, (c, view) in enumerate(zip(coords, p)):
+            rebuilt = torch.as_strided(c, (24, g0, g1, n), strides[4 * k:4 * k + 4],
+                                       c.storage_offset())
+            assert torch.equal(rebuilt, view.movedim(axis, -1).reshape(24, g0, g1, n))
+
+
 def test_affine_conversions_match_jax(lanes):
     ps, qs = lanes
     jp, jq_aff, _, tp, tq_aff, _ = _operands(ps[:70], qs[:70])

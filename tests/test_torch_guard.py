@@ -115,6 +115,10 @@ def test_kernel_wrappers_check_arguments():
         kernels.accumulate(torch.zeros((4, 24), dtype=torch.int64), lanes, lanes, lanes)
     with pytest.raises(ValueError, match="index must be"):
         kernels.accumulate(torch.zeros((4, 24), dtype=torch.int32), lanes.long(), lanes, lanes)
+    with pytest.raises(ValueError, match="not a batch axis"):
+        kernels.g1_tree_reduce([(p, 0, 1)])
+    with pytest.raises(ValueError, match="to must be"):
+        kernels.g1_tree_reduce([(p, -1, 0)])
     meta = tcv.G1Jac(*(c.to("meta") for c in p))
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.g1_add(meta, meta)

@@ -11,8 +11,10 @@ pair, identities on either side and both) goes through each point kernel,
 K5 on it again with q affine (its plain twin, refimpl and the doubling
 count), a BGMW MSM with an infinity row, a zero scalar and a duplicated
 point with an equal scalar through K1, K2 and K4, and the tableless MSMs
-(msm through K1, K2, K4; msm_naive through K3, K5, K2).  Comparisons are
-exact.
+(msm through K1, the tree kernel and K4; msm_naive through K3, K5, K2),
+K1 on runs that span several pieces, and the tree kernel on groups
+whose halves meet the same point, its inverse or an identity, at widths
+below and past the lanes a block keeps.  Comparisons are exact.
 """
 
 import random
@@ -126,3 +128,78 @@ def test_tableless_msm_on_card_matches_cpu(cuda_device, n):
         assert torch.equal(a, b.cpu())
     assert tcv.jac_to_int_points(tcv.G1Jac(*(x[..., None] for x in card)))[0] \
         == g1_msm(points, scalars)
+
+
+@pytest.mark.cuda
+def test_accumulate_pieces_match_plain_twin(cuda_device):
+    """K1 on runs of up to 3 x PIECE rows against its twin at piece=PIECE,
+    limb for limb, and against whole runs as group elements: a row
+    repeated (doubling inside a piece, and two equal piece sums), a row
+    and its negation (the identity mid-run), two opposite piece sums,
+    identity rows, and empty runs."""
+    rng = random.Random(0xACC)
+    P = kernels.PIECE
+    base = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(12)]
+    table_pts = [rng.choice(base) for _ in range(64)]
+    table_pts[3] = None
+    runs = [[(rng.randrange(64) << 2) | (rng.randrange(2) << 1)
+             for _ in range(rng.choice([0, 1, 2, P - 1, P, P + 1, 2 * P + 3, 3 * P]))]
+            for _ in range(150)]
+    runs[5] = [7 << 2] * (2 * P)
+    runs[6] = [5 << 2, (5 << 2) | 2] * P
+    runs[7] = [3 << 2] * (P + 5)
+    runs[8] = [9 << 2] * P + [(9 << 2) | 2] * P
+    entries, start, count = [], [], []
+    for run in runs:
+        start.append(len(entries))
+        count.append(len(run))
+        entries += [e | int(table_pts[e >> 2] is None) for e in run]
+    table = tmf.pack_points(tcv.affine_from_ints(table_pts))
+    index, start, count = (torch.tensor(v, dtype=torch.int32) for v in (entries, start, count))
+    got = kernels.accumulate(table.to(cuda_device), index.to(cuda_device),
+                             start.to(cuda_device), count.to(cuda_device))
+    for a, b in zip(got, kernels.accumulate_plain(table, index, start, count, piece=P)):
+        assert torch.equal(a.cpu(), b)
+    assert tcv.jac_to_int_points(got) == tcv.jac_to_int_points(
+        kernels.accumulate_plain(table, index, start, count))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,n,axis,to", [(4, 13, -1, 1), (4, 37, -1, 4), (5, 16, -2, 1),
+                                              (3, 1500, -1, 32), (2, 2100, -1, 1)])
+def test_tree_reduce_matches_plain_twin(cuda_device, groups, n, axis, to):
+    """g1_tree_reduce against its plain twin, limb for limb, on groups
+    whose first level pairs a point with itself, with its inverse, and
+    identities on either side; widths past TREE_LANES fold while
+    loading.  The roots are the refimpl sums of their leaves."""
+    rng = random.Random(n)
+    base = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(16)]
+    half = (to << (-(-n // to) - 1).bit_length()) // 2
+    leaves = []
+    for _ in range(groups):
+        row = [rng.choice(base) for _ in range(n)]
+        for i, j in ((0, half), (1, half + 1)):
+            if j < n:
+                row[j] = row[i] if i == 0 else g1_neg(row[i])
+        row[2] = None
+        if half + 3 < n:
+            row[half + 3] = None
+        leaves.append(row)
+    pts = tcv.from_affine(tcv.affine_from_ints([pt for row in leaves for pt in row]))
+    if axis == -1:
+        grid = tcv.G1Jac(*(c.reshape(24, groups, n) for c in pts))
+    else:
+        grid = tcv.G1Jac(*(c.reshape(24, groups, n).transpose(1, 2) for c in pts))
+    got = kernels.g1_tree_reduce([(_to(grid, cuda_device), axis, to)])[0]
+    want = kernels.g1_tree_reduce_plain(grid, axis, to)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    roots = tcv.G1Jac(*(c.movedim(axis, -1).reshape(24, -1) for c in got))
+    sums = []
+    for row in leaves:
+        for r in range(min(to, n)):
+            total = None
+            for pt in row[r::to] if to < n else [row[r]]:
+                total = g1_add(total, pt)
+            sums.append(total)
+    assert tcv.jac_to_int_points(roots) == sums

@@ -3,7 +3,9 @@
 The bucket half of the reference's msm_fused_bgmw runs through the
 Pallas interpreter (BTILE patched to 128, so its spare region has 16
 slots; the port's MIN_SPARE is patched to match), and the port's
-(buckets, weights) must equal it slot for slot after canonicalize.  The
+(buckets, weights) must equal it slot for slot after canonicalize: limb
+for limb where K1's twin sums whole runs, as group elements where it cuts
+them into pieces as the kernel does.  The
 final point is held against refimpl and the reference's msm_naive (the
 reduction half under the interpreter costs minutes on a CPU).  n = 32 at
 c = 7 (signed digits) and c = 8 (unsigned), with an infinity row, a zero
@@ -88,6 +90,9 @@ def _scalars(kind, c):
 
 @pytest.mark.parametrize("c,kind", [(7, "mixed"), (8, "mixed"), (7, "equal"), (8, "equal")])
 def test_bgmw_buckets_and_point_match_jax(points, jax_tables, c, kind, monkeypatch):
+    """K1's plain twin with whole runs (piece=None) gives the reference's
+    buckets limb for limb; cut into pieces (3 rows, and the kernel's
+    PIECE, which the CPU wrapper runs) it gives the same group elements."""
     jtable = jax_tables(c)
     ttable = _to_torch(jtable)
     sc = _scalars(kind, c)
@@ -105,18 +110,24 @@ def test_bgmw_buckets_and_point_match_jax(points, jax_tables, c, kind, monkeypat
     jd, jneg = jmf.bgmw_digits_for(jsc, c, W)
     np.testing.assert_array_equal(np.asarray(jd), td.numpy())
     jb, jw = jmf.bgmw_buckets_from_digits(jmf.pack_points(jtable), jtable.inf, jd, c, jneg)
-    tb, tw = tmf.bgmw_buckets_from_digits(tmf.pack_points(ttable), ttable.inf, td, c, tneg)
-    _same(jcv.G1Jac(*(JFP.canonicalize(x) for x in jb)), tb)
+    packed = tmf.pack_points(ttable)
+    runs = tmf.bucket_runs(ttable.inf, td, c, tneg)
+    whole = kernels.accumulate_plain(packed, *runs[:3])
+    _same(jcv.G1Jac(*(JFP.canonicalize(x) for x in jb)), whole)
+    np.testing.assert_array_equal(np.asarray(jw), runs[3].numpy())
+    assert int(runs[2].max()) > 3                      # pieces of 3 split runs
+    want = tcv.jac_to_int_points(whole)
+    assert tcv.jac_to_int_points(kernels.accumulate_plain(packed, *runs[:3], piece=3)) == want
+    tb, tw = tmf.bgmw_buckets_from_digits(packed, ttable.inf, td, c, tneg)
+    assert tcv.jac_to_int_points(tb) == want
     np.testing.assert_array_equal(np.asarray(jw), tw.numpy())
 
     monkeypatch.setenv("FOURIER_PALLAS", "0")
-    point = tmf.bgmw_reduce(tb, tw, c, tneg is not None)
-    got = tcv.jac_to_int_points(tcv.G1Jac(*(x[..., None] for x in point)))[0]
-    assert got == g1_msm(points, sc)
+    # the whole MSM: these digits, buckets and weights through bgmw_reduce
+    got = _point(tmf.msm_fused_bgmw(packed, ttable.inf, tsc, c))
+    assert got == g1_msm_fast(points, sc)
     want = jcv.jac_to_int_points(jmsm.msm_naive(jcv.affine_from_ints(points), jsc))
     assert [got] == want
-    assert got == tcv.jac_to_int_points(tcv.G1Jac(*(x[..., None] for x in tmf.msm_fused_bgmw(
-        tmf.pack_points(ttable), ttable.inf, tsc, c))))[0]
 
 
 def _point(p):

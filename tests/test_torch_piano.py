@@ -139,7 +139,7 @@ def test_port_reproduces_pinned_transcript(fx, port_backend):
     assert b.master_verify(mc, beta, alpha, z, (pi0, pi1))
 
 
-def test_tableless_msm_not_ported(fx, port_backend):
+def test_tableless_rows_reproduce_pinned_transcript(fx, port_backend):
     """Without tables every row serves tableless (msm_naive: 8 points a
     row) and gives the pinned transcript's commitments, evals and proofs."""
     settings = port_backend.settings
