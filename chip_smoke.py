@@ -269,8 +269,10 @@ def _adversarial(device):
 
     # the tree kernel: groups whose first level pairs a point with itself,
     # with its inverse, and identities on either side; a width folded while
-    # loading, strided leaves, and several roots a group
-    for groups, width, axis, to in ((4, 37, -1, 4), (5, 16, -2, 1), (2, 2100, -1, 1)):
+    # loading, strided leaves, and several roots a group (3 of them: a
+    # count that is not a power of two)
+    for groups, width, axis, to in ((4, 37, -1, 4), (5, 16, -2, 1), (2, 2100, -1, 1),
+                                    (2, 1000, -1, 3)):
         half = (to << (-(-width // to) - 1).bit_length()) // 2
         pts = []
         for _ in range(groups):

@@ -29,8 +29,8 @@
 // into shared memory and starts the next row's copy (and the load of the
 // index entry after it) before the current add, so the gather's latency
 // hides behind the arithmetic without holding the row in registers; its
-// registers are capped so that 3 blocks fit an SM (ACC_MIN_BLOCKS: of 1 to
-// 5 blocks, 3 measured fastest on an H100, kernel_probe.py).
+// registers are capped so that ACC_MIN_BLOCKS blocks fit an SM (PERF.md
+// gives the caps measured on an H100).
 //
 // Pieces are numbered slot by slot: piece_end is the inclusive cumulative
 // sum of ceil(count / piece) over the slots.  The runs must be disjoint
@@ -45,9 +45,7 @@
 #define ACC_THREADS 128
 // Blocks of ACC_THREADS an SM must fit: a cap on pass 1's registers per
 // thread, so more warps hide the latency of the product chains.
-#ifndef ACC_MIN_BLOCKS
 #define ACC_MIN_BLOCKS 3
-#endif
 
 // A Jacobian point as 36 words, word j of item i at j * stride + i.
 __device__ __forceinline__ void store_packed(uint32_t *dst, int64_t stride, int64_t i,

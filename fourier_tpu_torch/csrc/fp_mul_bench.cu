@@ -1,8 +1,7 @@
 // A microbenchmark of the Fp Montgomery product of the G1 kernels (fp_mul
 // of g1.cuh): one product per thread (for its SASS) and a dependent chain
 // of products per thread (for the rate over many lanes and the latency in
-// one warp).  kernel_probe.py builds it once per form of the product: as
-// is, and with -DFP_MUL_PTX.
+// one warp).  kernel_probe.py builds it and counts its SASS.
 // Values are 12 x 32-bit words, word-major: word j of lane i at j * n + i.
 
 #include "g1.cuh"

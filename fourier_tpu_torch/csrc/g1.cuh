@@ -118,17 +118,6 @@ __device__ __forceinline__ void fp_neg(Fp &r, const Fp &a) {
 // Montgomery product a * b / 2^384 mod p, word-serial CIOS.  With a, b < p
 // the pre-reduction value is < 2p < 2^384, so t[12] ends at zero and one
 // conditional subtraction makes the result canonical.
-//
-// Two forms, the same words: 64-bit C arithmetic (the default: IMAD.WIDE
-// chains, 1,232 SASS instructions a product) and, where FP_MUL_PTX is
-// defined, PTX carry chains (1,568 instructions).  Measured on an H100
-// (kernel_probe.py, PERF.md): the PTX form has the shorter dependent chain
-// (1.59 against 1.94 us a product in one warp) and the higher rate with
-// every warp slot filled, but in the kernels, where independent products
-// of a point formula can overlap, the C form is faster (K1 10.4 against
-// 14.5 ms, K3 5.5 against 7.8 ms).  The tree kernel, whose narrow levels
-// wait on one chain at a time, defines FP_MUL_PTX.
-#ifndef FP_MUL_PTX
 __device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
   uint32_t t[FP_WORDS + 2];
 #pragma unroll
@@ -162,99 +151,6 @@ __device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
 #pragma unroll
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[j];
 }
-#else
-// t[0..12] += a * b: the low halves of the word products in one carry
-// chain, then the high halves one word up in another.  The sum stays below
-// 2^416, so neither chain carries out of t[12].
-__device__ __forceinline__ void fp_mac_row(uint32_t *t, const uint32_t *a, uint32_t b) {
-  asm("mad.lo.cc.u32 %0, %13, %25, %0;\n\t"
-      "madc.lo.cc.u32 %1, %14, %25, %1;\n\t"
-      "madc.lo.cc.u32 %2, %15, %25, %2;\n\t"
-      "madc.lo.cc.u32 %3, %16, %25, %3;\n\t"
-      "madc.lo.cc.u32 %4, %17, %25, %4;\n\t"
-      "madc.lo.cc.u32 %5, %18, %25, %5;\n\t"
-      "madc.lo.cc.u32 %6, %19, %25, %6;\n\t"
-      "madc.lo.cc.u32 %7, %20, %25, %7;\n\t"
-      "madc.lo.cc.u32 %8, %21, %25, %8;\n\t"
-      "madc.lo.cc.u32 %9, %22, %25, %9;\n\t"
-      "madc.lo.cc.u32 %10, %23, %25, %10;\n\t"
-      "madc.lo.cc.u32 %11, %24, %25, %11;\n\t"
-      "addc.u32 %12, %12, 0;\n\t"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(b));
-  asm("mad.hi.cc.u32 %0, %12, %24, %0;\n\t"
-      "madc.hi.cc.u32 %1, %13, %24, %1;\n\t"
-      "madc.hi.cc.u32 %2, %14, %24, %2;\n\t"
-      "madc.hi.cc.u32 %3, %15, %24, %3;\n\t"
-      "madc.hi.cc.u32 %4, %16, %24, %4;\n\t"
-      "madc.hi.cc.u32 %5, %17, %24, %5;\n\t"
-      "madc.hi.cc.u32 %6, %18, %24, %6;\n\t"
-      "madc.hi.cc.u32 %7, %19, %24, %7;\n\t"
-      "madc.hi.cc.u32 %8, %20, %24, %8;\n\t"
-      "madc.hi.cc.u32 %9, %21, %24, %9;\n\t"
-      "madc.hi.cc.u32 %10, %22, %24, %10;\n\t"
-      "madc.hi.u32 %11, %23, %24, %11;\n\t"
-      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(b));
-}
-
-// t[0..12] += m * p, p's words as immediates.  m makes the low word vanish,
-// so only its carry is kept.
-__device__ __forceinline__ void fp_redc_row(uint32_t *t, uint32_t m) {
-  asm("{\n\t"
-      ".reg .u32 z;\n\t"
-      "mad.lo.cc.u32 z, %13, 0xffffaaab, %0;\n\t"
-      "madc.lo.cc.u32 %1, %13, 0xb9feffff, %1;\n\t"
-      "madc.lo.cc.u32 %2, %13, 0xb153ffff, %2;\n\t"
-      "madc.lo.cc.u32 %3, %13, 0x1eabfffe, %3;\n\t"
-      "madc.lo.cc.u32 %4, %13, 0xf6b0f624, %4;\n\t"
-      "madc.lo.cc.u32 %5, %13, 0x6730d2a0, %5;\n\t"
-      "madc.lo.cc.u32 %6, %13, 0xf38512bf, %6;\n\t"
-      "madc.lo.cc.u32 %7, %13, 0x64774b84, %7;\n\t"
-      "madc.lo.cc.u32 %8, %13, 0x434bacd7, %8;\n\t"
-      "madc.lo.cc.u32 %9, %13, 0x4b1ba7b6, %9;\n\t"
-      "madc.lo.cc.u32 %10, %13, 0x397fe69a, %10;\n\t"
-      "madc.lo.cc.u32 %11, %13, 0x1a0111ea, %11;\n\t"
-      "addc.u32 %12, %12, 0;\n\t"
-      "}\n\t"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
-      : "r"(m));
-  asm("mad.hi.cc.u32 %0, %12, 0xffffaaab, %0;\n\t"
-      "madc.hi.cc.u32 %1, %12, 0xb9feffff, %1;\n\t"
-      "madc.hi.cc.u32 %2, %12, 0xb153ffff, %2;\n\t"
-      "madc.hi.cc.u32 %3, %12, 0x1eabfffe, %3;\n\t"
-      "madc.hi.cc.u32 %4, %12, 0xf6b0f624, %4;\n\t"
-      "madc.hi.cc.u32 %5, %12, 0x6730d2a0, %5;\n\t"
-      "madc.hi.cc.u32 %6, %12, 0xf38512bf, %6;\n\t"
-      "madc.hi.cc.u32 %7, %12, 0x64774b84, %7;\n\t"
-      "madc.hi.cc.u32 %8, %12, 0x434bacd7, %8;\n\t"
-      "madc.hi.cc.u32 %9, %12, 0x4b1ba7b6, %9;\n\t"
-      "madc.hi.cc.u32 %10, %12, 0x397fe69a, %10;\n\t"
-      "madc.hi.u32 %11, %12, 0x1a0111ea, %11;\n\t"
-      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
-      : "r"(m));
-}
-
-// The same product in PTX carry chains (mad.lo.cc / madc.hi.cc): per word
-// of b one row of a and one row of p, then a one-word shift.
-__device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
-  uint32_t t[FP_WORDS + 1];
-#pragma unroll
-  for (int j = 0; j <= FP_WORDS; j++) t[j] = 0u;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; i++) {
-    fp_mac_row(t, a.w, b.w[i]);
-    fp_redc_row(t, t[0] * FP_NINV);
-#pragma unroll
-    for (int j = 0; j < FP_WORDS; j++) t[j] = t[j + 1];
-    t[FP_WORDS] = 0u;
-  }
-  fp_reduce_once(t);
-#pragma unroll
-  for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[j];
-}
-
-#endif
 
 __device__ __forceinline__ void fp_sqr(Fp &r, const Fp &a) { fp_mul(r, a, a); }
 

@@ -13,13 +13,15 @@
 // depend on each other share the card instead of following each other.
 // The leaves are padded with identities to P = to << k lanes; at every
 // level lane i takes lane i + half, the pairing of the reference's trees,
-// so the roots equal theirs limb for limb.  The block keeps `lanes` (at
-// most TREE_MAX_LANES) points in shared memory as packed 32-bit words (144
+// so the roots equal theirs limb for limb.  The block keeps `lanes` (to
+// << j, at most P) points in shared memory as packed 32-bit words (144
 // bytes a point) and runs every level there, with a barrier between
-// levels; only the roots are written.  Where P is wider, each shared lane
-// i first takes, while loading, the subtree of the first fan_levels levels
-// over the leaves i + m * lanes (m < 2^fan_levels), summed in the same
-// order (a binary counter over m bit-reversed).
+// levels; only the roots are written.  Where P is wider, P = lanes <<
+// fan_levels, and each shared lane i first takes, while loading, the
+// subtree of the first fan_levels levels over the leaves i + m * lanes (m
+// < 2^fan_levels), summed in the same order (a binary counter over m
+// bit-reversed).  The caller picks `lanes`; the shared memory a block may
+// have bounds it.
 //
 // Leaves are read through strides (a limb stride, two group strides and a
 // leaf stride per coordinate), so sliced, reshaped and broadcast views
@@ -28,15 +30,10 @@
 //
 // Bound: integer multiply throughput (16 Fp products an add) on the wide
 // levels, add latency on the narrow ones: a tree of depth d costs at least
-// d dependent adds.  So it builds the PTX form of the Fp product, the one
-// with the shorter dependent chain (g1.cuh).
+// d dependent adds.
 
-#ifndef FP_MUL_PTX
-#define FP_MUL_PTX
-#endif
 #include "g1.cuh"
 
-#define TREE_MAX_LANES 1024
 #define TREE_MAX_FAN_LEVELS 8
 #define TREE_MAX_THREADS 256
 #define TREE_MAX_TREES 4
@@ -188,8 +185,11 @@ extern "C" int fk_g1_tree_reduce(int32_t count, const int64_t *desc, int32_t thr
     a.fan_levels = (int32_t)d[23];
     a.n_roots = groups * a.to;
     a.first_block = blocks;
-    if (groups < 1 || a.lanes < a.to || a.lanes > TREE_MAX_LANES || a.fan_levels < 0 ||
-        a.fan_levels > TREE_MAX_FAN_LEVELS)
+    // lanes = to << j, and lanes << fan_levels covers the n leaves
+    const int64_t ratio = a.to > 0 ? a.lanes / a.to : 0;
+    if (groups < 1 || a.to < 1 || a.lanes % a.to || ratio < 1 || (ratio & (ratio - 1)) ||
+        a.fan_levels < 0 || a.fan_levels > TREE_MAX_FAN_LEVELS ||
+        ((int64_t)a.lanes << a.fan_levels) < a.n)
       return (int)cudaErrorInvalidValue;
     blocks += groups;
     lanes_max = a.lanes > lanes_max ? a.lanes : lanes_max;

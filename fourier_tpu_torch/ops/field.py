@@ -12,9 +12,8 @@ evaluation-form opening and the affine conversions run them.  Point
 arithmetic on a CUDA device goes through the hand-written kernels in
 ``ops.kernels`` instead.  The TPU formulation (Kogge-Stone carries, the
 wide/rolled switch, the padded lazy domain) has no counterpart: a mul is
-a Montgomery product with plain carry loops, formed from whole limb
-products for small batches (few, wide ops) and word-serially for large
-ones (no [L, L, batch] temporary).
+a word-serial Montgomery product with plain carry loops; on the CPU,
+small batches form it from whole limb products instead (few, wide ops).
 """
 
 from __future__ import annotations
@@ -25,8 +24,9 @@ from ..constants import FP_LIMBS, FR_LIMBS, LIMB_BITS, LIMB_MASK, P, R
 from .limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
 
 MASK = LIMB_MASK
-# Batches of at most this many lanes multiply through whole [L, L, batch]
-# limb products (Field._mul_whole); larger ones word-serially (_mul_cios).
+# CPU batches of at most this many lanes multiply through whole [L, L,
+# batch] limb products (Field._mul_whole); the rest word-serially
+# (_mul_cios).
 WHOLE_PRODUCT_LANES = 64
 
 
@@ -176,7 +176,7 @@ class Field:
         """Montgomery product a*b/2^(16L) mod N, canonical, for any a <
         2^(16L) and b < N."""
         a, b = torch.broadcast_tensors(a, b)
-        if a[0].numel() <= WHOLE_PRODUCT_LANES:
+        if a.device.type == "cpu" and a[0].numel() <= WHOLE_PRODUCT_LANES:
             return self._mul_whole(a, b)
         return self._mul_cios(a, b)
 

@@ -60,9 +60,10 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # At least 32 keeps each fixed-base setup run (W = 32 rows at c = 8) whole.
 PIECE = 32
 # g1_tree_reduce keeps at most TREE_LANES lanes of a group in shared memory
-# (144 bytes a lane) and folds wider groups while loading them; a block of
-# TREE_THREADS threads owns a group, and one launch carries at most
-# TREE_MAX_TREES trees.
+# (144 bytes a lane) and folds wider groups while loading them, over at
+# most TREE_MAX_FAN_LEVELS levels; a block of TREE_THREADS threads owns a
+# group, and one launch carries at most TREE_MAX_TREES trees.  The last
+# three are also compiled into csrc/g1_tree.cu.
 TREE_LANES = 256
 TREE_THREADS = 64
 TREE_MAX_FAN_LEVELS = 8
@@ -375,6 +376,23 @@ def _tree_spec(p: G1Jac, axis: int, to: int):
     return axis
 
 
+def tree_plan(n: int, to: int) -> tuple[int, int]:
+    """(lanes, fan_levels) of a group of n leaves reduced to `to` roots:
+    the padded width to << k (k as small as covers n) is lanes <<
+    fan_levels, where lanes = to << j is the widest such that fits
+    TREE_LANES.  The block keeps `lanes` points and folds the first
+    fan_levels levels while loading."""
+    if not 1 <= to <= TREE_LANES:
+        raise ValueError(f"to = {to} is not in [1, {TREE_LANES}]")
+    width = to << (-(-n // to) - 1).bit_length()
+    lanes = to << (min(width, TREE_LANES) // to).bit_length() - 1
+    fan_levels = (width // lanes).bit_length() - 1
+    if fan_levels > TREE_MAX_FAN_LEVELS:
+        raise ValueError(f"{n} leaves to {to} roots need {fan_levels} fan-in levels, "
+                         f"over {TREE_MAX_FAN_LEVELS}")
+    return lanes, fan_levels
+
+
 def g1_tree_reduce(trees) -> list:
     """Halving-tree reductions of independent point batches, one launch
     for all: for each (p, axis, to), `axis` is padded with identities to
@@ -401,13 +419,7 @@ def g1_tree_reduce(trees) -> list:
     for i in todo:
         p, axis, to = specs[i]
         n = p.x.shape[axis]
-        if to > TREE_LANES:
-            raise ValueError(f"to = {to} exceeds {TREE_LANES} lanes")
-        width = to << (-(-n // to) - 1).bit_length()         # the padded width
-        lanes = min(width, TREE_LANES)
-        fan_levels = (width // lanes).bit_length() - 1
-        if fan_levels > TREE_MAX_FAN_LEVELS:
-            raise ValueError(f"{n} leaves exceed {TREE_LANES << TREE_MAX_FAN_LEVELS}")
+        lanes, fan_levels = tree_plan(n, to)
         coords, groups0, groups1, strides = _tree_layout(p, axis)
         roots = _empty_like_coords(groups0 * groups1 * to, dev)
         keep.append((coords, roots))

@@ -12,30 +12,27 @@ Sections (each printed; the whole report is printed last as one JSON
 object, and written to --out FILE where one is given):
 
 1. the card's name and power limit (nvidia-smi);
-2. the Fp Montgomery product (csrc/fp_mul_bench.cu) in each of its forms:
+2. with --sass, the Fp Montgomery product (csrc/fp_mul_bench.cu):
    registers (ptxas), instructions of one product by opcode (cuobjdump
    -sass of a one-product kernel), the rate of dependent chains over 2^20
    lanes and the latency of one product in a single warp's chain (CUDA
-   events); every form must give the same words; then
-   ptxas's registers, stack and spills for each kernel of the library;
+   events); then ptxas's registers, stack and spills for each kernel of
+   the library;
 3. K1 (accumulate) at the main path's shape: 2^23 table rows (16 windows x
    2^19 points, c = 16, unsigned digits) into 65,536 + 1,024 slots, kernel
-   mean of 3 launches after a warm one; where the package splits runs into
-   pieces, once for each piece size in PIECES, and built with each cap on
-   its registers (__launch_bounds__ minimum blocks 1, 2, 4, 5; the library uses 3);
+   mean of 3 launches after a warm one;
 4. the reduction of those buckets: `_weighted_sums_factored` (the rows,
    columns, bit and spare trees) and `fold_small` after the K4 Horner,
-   without K4: CUDA-event mean and host wall (after a synchronize) of 5
-   runs each, and the launches of each kernel; where the tree kernel has
-   a block size, the weighted sums again at 32, 64 and 128 threads;
+   without K4: CUDA events around the calls (host time between launches
+   included) and host wall (after a synchronize), mean of 5 runs each,
+   and the launches of each kernel;
 5. the whole BGMW MSM (digits to one point) at that shape: CUDA events and
    host wall, mean of 3, and its launches;
-6. K2, K3, K4 and K5 at chip_smoke.py's phase-1 shapes (CUDA events);
-7. with --setup, only the in-memory server setup at scale 20 / machines 1
-   (host wall after a synchronize, and its launches), instead of 2-6.
+6. with --setup, only the in-memory server setup at scale 20 / machines 1
+   (host wall after a synchronize, and its launches), instead of 2-5.
 
---define NAME builds every kernel with -DNAME (FP_MUL_PTX: the PTX form of
-the Fp product), so one call can time both forms.
+To compare two trees, run the script on each in turn in one chip call
+(parent, change, change, parent): a tree's first run builds its kernels.
 
 No number from this script is a CPU number: it exits 1 without a card.
 """
@@ -53,9 +50,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCALE = 20
-PIECES = (32, 64)
-BENCH_FORMS = {"g1.cuh fp_mul, C 64-bit CIOS": (), "g1.cuh fp_mul, PTX carry chains":
-               ("-DFP_MUL_PTX",)}
 
 
 def log(msg):
@@ -109,7 +103,7 @@ def _sass_opcodes(sass: str, function: str) -> dict:
     return counts
 
 
-def fp_mul_forms(build_dir):
+def fp_mul(build_dir):
     import ctypes
 
     import torch
@@ -129,67 +123,48 @@ def fp_mul_forms(build_dir):
                           dtype=torch.int64)
     words[:, 11] %= 0x1A0111EA                      # below p's top word: canonical
     a32 = (words - ((words >> 31) << 32)).to(torch.int32)
-    out, ref = {}, None
-    with open(os.path.join(kernels.CSRC, "g1.cuh")) as fh:
-        has_ptx = "FP_MUL_PTX" in fh.read()
-    for v, (form, defines) in enumerate(BENCH_FORMS.items()):
-        if defines and not has_ptx:
-            continue                  # a header with one form of the product
-        so = os.path.join(build_dir, f"libbench{v}.so")
-        cubin = os.path.join(build_dir, f"bench{v}.cubin")
-        res = subprocess.run([nvcc, *flags, *defines, "-Xptxas", "-v",
-                              "-Xcompiler", "-fPIC", "-shared", "-o", so, src],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            out[form] = {"build_error": res.stderr[-2000:]}
-            log(f"fp_mul [{form}]: build failed\n{res.stderr[-2000:]}")
-            continue
-        regs = {k: int(r) for k, r in re.findall(
-            r"Compiling entry function '(\w+)'[\s\S]*?Used (\d+) registers", res.stderr)}
-        subprocess.run([nvcc, *flags, *defines, "-cubin", "-o", cubin, src],
-                       check=True, capture_output=True)
-        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True,
-                              text=True).stdout
-        ops = _sass_opcodes(sass, "bench_one")
-        lib = ctypes.CDLL(so)
-        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.fk_bench_chain.argtypes = [vp, vp, ci, i64, vp]
-        stream = torch.cuda.current_stream().cuda_stream
-        x = a32[0].clone()
-        rc = lib.fk_bench_chain(x.data_ptr(), a32[1].data_ptr(), iters, n, stream)
+    so = os.path.join(build_dir, "libbench.so")
+    cubin = os.path.join(build_dir, "bench.cubin")
+    res = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-shared",
+                          "-o", so, src], capture_output=True, text=True, check=True)
+    regs = {k: int(r) for k, r in re.findall(
+        r"Compiling entry function '(\w+)'[\s\S]*?Used (\d+) registers", res.stderr)}
+    subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, src], check=True, capture_output=True)
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True,
+                          text=True).stdout
+    ops = _sass_opcodes(sass, "bench_one")
+    lib = ctypes.CDLL(so)
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.fk_bench_chain.argtypes = [vp, vp, ci, i64, vp]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def chain(x, m, k, lanes):
+        rc = lib.fk_bench_chain(x.data_ptr(), m.data_ptr(), k, lanes, stream)
         if rc != 0:
-            raise RuntimeError(f"bench_chain [{form}] failed: CUDA error {rc}")
-        torch.cuda.synchronize()
-        y = a32[0].clone()
-        ms, _ = cuda_ms(lambda: lib.fk_bench_chain(y.data_ptr(), a32[1].data_ptr(), iters, n,
-                                                   stream), 3)
-        # one warp alone: the latency of a product in a dependent chain
-        w = a32[0, :, :32].contiguous()
-        m = a32[1, :, :32].contiguous()
-        one_warp_ms, _ = cuda_ms(lambda: lib.fk_bench_chain(w.data_ptr(), m.data_ptr(), 256, 32,
-                                                            stream), 3)
-        if ref is None:
-            ref = x
-        same = bool(torch.equal(x, ref))
-        imad = sum(c for op, c in ops.items() if op.startswith("IMAD"))
-        rec = {"registers": regs, "sass_total": sum(ops.values()), "sass_imad": imad,
-               "sass_imad_wide": sum(c for op, c in ops.items() if op.startswith("IMAD.WIDE")),
-               "sass_imad_mov": sum(c for op, c in ops.items() if op.startswith("IMAD.MOV")),
-               "sass_iadd3": sum(c for op, c in ops.items() if op.startswith("IADD3")),
-               "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12]),
-               "chain_ms": ms, "products_per_s": n * iters / (ms * 1e-3),
-               "latency_us": one_warp_ms * 1e3 / 256,
-               "equal_to_first": same}
-        out[form] = rec
-        log(f"fp_mul [{form}]: {rec['sass_imad']} IMAD-class ({rec['sass_imad_wide']} wide, "
-            f"{rec['sass_imad_mov']} moves), {rec['sass_iadd3']} IADD3, {rec['sass_total']} "
-            f"SASS instructions in a one-product kernel; registers {regs}; "
-            f"{n} lanes x {iters} dependent products {ms:.4f} ms = "
-            f"{rec['products_per_s']:.4e} products/s; one warp: {rec['latency_us']:.4f} us a "
-            f"dependent product; equal to the first form: {same}")
-        if not same:
-            raise RuntimeError(f"fp_mul form {form} gives other words than the first")
-    return out
+            raise RuntimeError(f"bench_chain failed: CUDA error {rc}")
+
+    y = a32[0].clone()
+    chain(y, a32[1], iters, n)
+    ms, _ = cuda_ms(lambda: chain(y, a32[1], iters, n), 3)
+    # one warp alone: the latency of a product in a dependent chain
+    w = a32[0, :, :32].contiguous()
+    m = a32[1, :, :32].contiguous()
+    one_warp_ms, _ = cuda_ms(lambda: chain(w, m, 256, 32), 3)
+    rec = {"registers": regs, "sass_total": sum(ops.values()),
+           "sass_imad": sum(c for op, c in ops.items() if op.startswith("IMAD")),
+           "sass_imad_wide": sum(c for op, c in ops.items() if op.startswith("IMAD.WIDE")),
+           "sass_imad_mov": sum(c for op, c in ops.items() if op.startswith("IMAD.MOV")),
+           "sass_iadd3": sum(c for op, c in ops.items() if op.startswith("IADD3")),
+           "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12]),
+           "chain_ms": ms, "products_per_s": n * iters / (ms * 1e-3),
+           "latency_us": one_warp_ms * 1e3 / 256}
+    log(f"fp_mul: {rec['sass_imad']} IMAD-class ({rec['sass_imad_wide']} wide, "
+        f"{rec['sass_imad_mov']} moves), {rec['sass_iadd3']} IADD3, {rec['sass_total']} "
+        f"SASS instructions in a one-product kernel; registers {regs}; "
+        f"{n} lanes x {iters} dependent products {ms:.4f} ms = "
+        f"{rec['products_per_s']:.4e} products/s; one warp: {rec['latency_us']:.4f} us a "
+        f"dependent product")
+    return rec
 
 
 def kernel_resources(build_dir):
@@ -217,59 +192,6 @@ def kernel_resources(build_dir):
                        "spill_load_bytes": int(spill.group(2)) if spill else None}
             log(f"ptxas {name} {fn}: {out[fn]}")
     return out
-
-
-def k1_variants(build_dir, table, index, start, count, min_blocks=(1, 2, 4, 5)):
-    """K1 built with __launch_bounds__(128, b) for each b (a cap on its
-    registers, so more threads fit an SM), timed like the library's."""
-    import ctypes
-
-    import torch
-
-    from fourier_tpu_torch.ops import kernels
-
-    nvcc = kernels._nvcc()
-    src = os.path.join(kernels.CSRC, "accumulate.cu")
-    builds = {b: os.path.join(build_dir, f"libaccumulate_b{b}.so") for b in min_blocks}
-    procs = {b: subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, f"-DACC_MIN_BLOCKS={b}", "-Xptxas",
-                                  "-v", "-shared", "-o", so, src], stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for b, so in builds.items()}
-    P = kernels.PIECE
-    S = start.shape[0]
-    piece_end = torch.cumsum((count + (P - 1)) // P, 0, dtype=torch.int32)
-    max_pieces = -(-index.shape[0] // P) + S
-    partial = torch.empty((36, max_pieces), dtype=torch.int32, device="cuda")
-    out = [torch.empty((24, S), dtype=torch.int64, device="cuda") for _ in range(3)]
-    col = torch.zeros(1, dtype=torch.int64, device="cuda")
-    res = {}
-    for b, proc in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode != 0:
-            log(f"K1 with min blocks {b}: build failed\n{text[-2000:]}")
-            continue
-        body = text.split("accumulate_pieces_kernel", 1)[-1]
-        regs = re.search(r"Used (\d+) registers", body)
-        spill = re.search(r"(\d+) bytes spill stores", body)
-        lib = ctypes.CDLL(builds[b])
-        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-        lib.fk_accumulate.argtypes = [vp] * 5 + [i64, i32, i64] + [vp] * 6
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def run():
-            rc = lib.fk_accumulate(table.data_ptr(), index.data_ptr(), start.data_ptr(),
-                                   count.data_ptr(), piece_end.data_ptr(), S, P, max_pieces,
-                                   partial.data_ptr(), *(o.data_ptr() for o in out),
-                                   col.data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(f"K1 variant {b}: CUDA error {rc}")
-
-        run()
-        ms, _ = cuda_ms(run, 3)
-        res[str(b)] = {"ms": ms, "registers": int(regs.group(1)) if regs else None,
-                       "spill_store_bytes": int(spill.group(1)) if spill else None}
-        log(f"K1 with __launch_bounds__(128, {b}): {ms:.4f} ms, {res[str(b)]}")
-    return res
 
 
 # -- sections 3 to 5 ------------------------------------------------------------------
@@ -313,25 +235,10 @@ def main_path(report):
     shape = f"{rows} rows -> {start.shape[0]} slots"
 
     # K1
-    k1 = {}
-    pieces = PIECES if hasattr(kernels, "PIECE") else (None,)
-    chosen = getattr(kernels, "PIECE", None)
-    buckets = None
-    for piece in pieces:
-        if piece is not None:
-            kernels.PIECE = piece
-        kernels.accumulate(table, index, start, count)
-        ms, out = cuda_ms(lambda: kernels.accumulate(table, index, start, count), 3)
-        if piece == chosen:
-            buckets = out
-        k1[str(piece)] = ms
-        log(f"K1 accumulate at {shape}, piece {piece}: {ms:.4f} ms")
-    if chosen is not None:
-        kernels.PIECE = chosen
-    report["k1"] = {"shape": shape, "ms_by_piece": k1, "piece_in_use": chosen}
-    if chosen is not None:
-        build_dir = os.path.join(kernels.BUILD_DIR, "probe")
-        report["k1"]["min_blocks"] = k1_variants(build_dir, table, index, start, count)
+    kernels.accumulate(table, index, start, count)
+    k1_ms, buckets = cuda_ms(lambda: kernels.accumulate(table, index, start, count), 3)
+    report["k1"] = {"shape": shape, "ms": k1_ms, "piece": getattr(kernels, "PIECE", None)}
+    log(f"K1 accumulate at {shape}: {k1_ms:.4f} ms")
     del table, index, start, count
 
     # the reduction around K4, without K4
@@ -340,17 +247,6 @@ def main_path(report):
                                                                            c, Bpow))
     sums_ms, _ = cuda_ms(lambda: mf._weighted_sums_factored(buckets, weights, c, Bpow), 5)
     sums_wall, _ = wall_ms(lambda: mf._weighted_sums_factored(buckets, weights, c, Bpow), 5)
-    if hasattr(kernels, "TREE_THREADS"):
-        chosen_threads = kernels.TREE_THREADS
-        by_threads = {}
-        for threads in (32, 64, 128):
-            kernels.TREE_THREADS = threads
-            by_threads[str(threads)] = cuda_ms(
-                lambda: mf._weighted_sums_factored(buckets, weights, c, Bpow), 5)[0]
-            log(f"weighted sums with {threads} threads a tree block: "
-                f"{by_threads[str(threads)]:.4f} ms")
-        kernels.TREE_THREADS = chosen_threads
-        report["tree_threads_ms"] = by_threads
     L, K, R = terms.x.shape
     res = kernels.horner_2k(G1Jac(*(t.reshape(L, K * R) for t in terms)), width=R)
     fold_launches, _ = launches_of(lambda: cv.fold_small(res))
@@ -379,36 +275,6 @@ def main_path(report):
         f"{msm_wall:.4f} ms, launches {msm_launches}")
 
 
-def other_kernels(report):
-    """K2, K3, K4 and K5 at chip_smoke.py's phase-1 shapes: kernel mean by
-    CUDA events (20 launches, K3 5) after a warm one."""
-    import torch
-
-    from fourier_tpu_torch.ops import kernels
-    from fourier_tpu_torch.ops.curve import G1Aff, G1Jac
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(21)
-    T, c = 1 << (SCALE - 1), 16
-    out = {}
-    p = G1Jac(*(rand_fp(1 << (c - 1), gen) for _ in range(3)))
-    q = G1Jac(*(rand_fp(1 << (c - 1), gen) for _ in range(3)))
-    kernels.g1_add(p, q)
-    out["g1_add"] = cuda_ms(lambda: kernels.g1_add(p, q), 20)[0]
-    p = G1Jac(*(rand_fp(T, gen) for _ in range(3)))
-    kernels.g1_dbl(p, c)
-    out["g1_dbl"] = cuda_ms(lambda: kernels.g1_dbl(p, c), 5)[0]
-    q_aff = G1Aff(rand_fp(T, gen), rand_fp(T, gen), torch.arange(T, device="cuda") % 64 == 0)
-    kernels.g1_madd(p, q_aff)
-    out["g1_madd"] = cuda_ms(lambda: kernels.g1_madd(p, q_aff), 20)[0]
-    terms = G1Jac(*(rand_fp(c * 64, gen) for _ in range(3)))
-    kernels.horner_2k(terms, 64)
-    out["horner_2k"] = cuda_ms(lambda: kernels.horner_2k(terms, 64), 20)[0]
-    report["other_kernels_ms"] = out
-    log(f"K2 g1_add at 32768 lanes, K3 g1_dbl at 2^19 lanes x 16, K5 g1_madd at 2^19 lanes, "
-        f"K4 horner_2k at 16 x 64 lanes (ms): {out}")
-
-
 def setup_in_memory(report):
     """A scale-20 backend built in memory (SRS, fixed-base MSMs, BGMW
     tables): host wall after a synchronize, and its kernel launches."""
@@ -435,9 +301,9 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", help="also write the JSON report to this file")
     ap.add_argument("--setup", action="store_true",
-                    help="time only the in-memory server setup (section 7)")
-    ap.add_argument("--define", action="append", default=[],
-                    help="build the kernels with -D<this> (e.g. FP_MUL_PTX)")
+                    help="time only the in-memory server setup (section 6)")
+    ap.add_argument("--sass", action="store_true",
+                    help="also time the Fp product and count its SASS (section 2)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -448,12 +314,11 @@ def main() -> int:
         return 1
     from fourier_tpu_torch.ops import kernels
 
-    kernels.NVCC_FLAGS = (*kernels.NVCC_FLAGS, *(f"-D{d}" for d in args.define))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(f"{card} (package from {tree})")
-    report = {"label": args.label, "card": card, "defines": args.define}
+    report = {"label": args.label, "card": card}
     t0 = time.perf_counter()
     kernels.build()
     report["build_s"] = time.perf_counter() - t0
@@ -462,11 +327,10 @@ def main() -> int:
     if args.setup:
         setup_in_memory(report)
         return _write(report, args.out)
-    report["fp_mul"] = fp_mul_forms(build_dir)
-    report["ptxas"] = kernel_resources(build_dir)
+    if args.sass:
+        report["fp_mul"] = fp_mul(build_dir)
+        report["ptxas"] = kernel_resources(build_dir)
     main_path(report)
-    if hasattr(kernels, "TREE_THREADS"):
-        other_kernels(report)
     return _write(report, args.out)
 
 

@@ -11,7 +11,9 @@ K5's twin and K2.  Comparisons are exact.  The CUDA kernels against their
 plain twins on a card are in test_torch_kernels.py.
 """
 
+import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -179,6 +181,65 @@ def test_tree_kernel_layout_reads_views():
             rebuilt = torch.as_strided(c, (24, g0, g1, n), strides[4 * k:4 * k + 4],
                                        c.storage_offset())
             assert torch.equal(rebuilt, view.movedim(axis, -1).reshape(24, g0, g1, n))
+
+
+def _pair(a, b):
+    """An addition that records its association; None is the identity."""
+    return b if a is None else a if b is None else (a, b)
+
+
+@pytest.mark.parametrize("n,to", [(13, 1), (37, 4), (256, 1), (300, 3), (384, 3), (1000, 3),
+                                  (1500, 32), (2100, 1), (1024, 32)])
+def test_tree_kernel_plan_pairs_like_the_reference(n, to):
+    """The lanes and fan-in levels that g1_tree_reduce hands its kernel,
+    run through the kernel's loops (csrc/g1_tree.cu: the fan-in while
+    loading, a binary counter over m bit-reversed, then the halving levels
+    over the shared lanes) with an addition that records its association,
+    give the roots of the reference's halving tree, bracket for bracket."""
+    lanes, fan = kernels.tree_plan(n, to)
+    assert lanes % to == 0 and (lanes // to) & (lanes // to - 1) == 0
+    assert lanes <= kernels.TREE_LANES and fan <= kernels.TREE_MAX_FAN_LEVELS
+    width = to << (-(-n // to) - 1).bit_length()
+    assert lanes << fan == width
+
+    def leaf(j):
+        return j if j < n else None
+
+    ref = [leaf(j) for j in range(width)]
+    while len(ref) > to:
+        half = len(ref) // 2
+        ref = [_pair(ref[i], ref[i + half]) for i in range(half)]
+    shared = []
+    for i in range(lanes):
+        stack, v = [None] * fan, None
+        for t in range(1 << fan):
+            m = int(format(t, f"0{fan}b")[::-1], 2) if fan else 0
+            v = leaf(i + m * lanes)
+            lvl = 0
+            while (t >> lvl) & 1:
+                v = _pair(stack[lvl], v)
+                lvl += 1
+            if t + 1 < 1 << fan:
+                stack[lvl] = v
+        shared.append(v)
+    while len(shared) > to:
+        half = len(shared) // 2
+        shared = [_pair(shared[i], shared[i + half]) for i in range(half)]
+    assert shared == ref
+
+
+def test_tree_kernel_limits_match_its_source():
+    """The limits kernels.py checks before a launch are the ones compiled
+    into csrc/g1_tree.cu, and a plan past them is refused on the host."""
+    with open(os.path.join(kernels.CSRC, "g1_tree.cu")) as fh:
+        src = fh.read()
+    for name in ("TREE_MAX_FAN_LEVELS", "TREE_MAX_TREES"):
+        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == getattr(kernels, name)
+    assert kernels.TREE_THREADS <= int(re.search(r"#define TREE_MAX_THREADS (\d+)", src).group(1))
+    with pytest.raises(ValueError):
+        kernels.tree_plan((kernels.TREE_LANES << kernels.TREE_MAX_FAN_LEVELS) + 1, 1)
+    with pytest.raises(ValueError):
+        kernels.tree_plan(1000, kernels.TREE_LANES + 1)
 
 
 def test_affine_conversions_match_jax(lanes):

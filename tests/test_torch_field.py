@@ -113,75 +113,3 @@ def test_cuda_header_constants():
     ninv = int(re.search(r"#define FP_NINV (0x[0-9a-f]+)u", src).group(1), 16)
     assert ninv == (-pow(P, -1, 1 << 32)) % (1 << 32)
 
-
-def _ptx_blocks(src, function):
-    """The inline-PTX statements of one function of csrc/g1.cuh as
-    (instructions, output operands, input operands)."""
-    body = re.search(r"void " + function + r"\(.*?\n}\n", src, re.S).group(0)
-    blocks = []
-    for stmt in re.findall(r"asm\((.*?)\);", body, re.S):
-        text, outs, ins = stmt.split(":")
-        code = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', text)).replace("\\n\\t", "\n")
-        lines = [ln.strip() for ln in code.split("\n")
-                 if ln.strip() and ln.strip() not in ("{", "}") and not ln.startswith(".reg")]
-        blocks.append((lines, re.findall(r"\((.*?)\)", outs), re.findall(r"\((.*?)\)", ins)))
-    return blocks
-
-
-def _run_ptx(block, env):
-    """Emulate mad/madc (.lo/.hi, with or without .cc) and addc on 32-bit
-    words; a carry lost where the instruction does not set the flag fails."""
-    lines, outs, ins = block
-    regs = {f"%{k}": env[name] for k, name in enumerate(outs + ins)}
-    cc, mask = 0, (1 << 32) - 1
-    for ln in lines:
-        op, rest = ln.split(None, 1)
-        args = [a.strip() for a in rest.rstrip(";").split(",")]
-        val = [regs[a] if a in regs else int(a, 0) for a in args[1:]]
-        if op.startswith("mad"):
-            prod = val[0] * val[1]
-            s = ((prod & mask) if ".lo" in op else prod >> 32) + val[2]
-            s += cc if op.startswith("madc") else 0
-        else:
-            assert op == "addc.u32", op
-            s = val[0] + val[1] + cc
-        if ".cc" in op:
-            cc = s >> 32
-        else:
-            assert s >> 32 == 0, f"carry lost in {ln}"
-        regs[args[0]] = s & mask
-    for k, name in enumerate(outs):
-        env[name] = regs[f"%{k}"]
-
-
-def test_cuda_fp_mul_ptx_emulated():
-    """fp_mul of csrc/g1.cuh as written (its PTX carry chains emulated word
-    for word, in the CIOS loop of fp_mul) is the canonical Montgomery
-    product a * b / 2^384 mod p."""
-    from fourier_tpu_torch.ops import kernels
-
-    with open(os.path.join(kernels.CSRC, "g1.cuh")) as fh:
-        src = fh.read()
-    mac, redc = _ptx_blocks(src, "fp_mac_row"), _ptx_blocks(src, "fp_redc_row")
-    assert len(mac) == len(redc) == 2
-    ninv = (-pow(P, -1, 1 << 32)) % (1 << 32)
-    rinv = pow(1 << 384, -1, P)
-    rng = random.Random(0x7C1)
-    cases = [(0, 0), (1, 1), (P - 1, P - 1), (P - 1, 1)] + \
-        [(rng.randrange(P), rng.randrange(P)) for _ in range(300)]
-    for a, b in cases:
-        env = {f"a[{j}]": (a >> 32 * j) & 0xFFFFFFFF for j in range(12)}
-        env.update({f"t[{j}]": 0 for j in range(13)})
-        for i in range(12):
-            env["b"] = (b >> 32 * i) & 0xFFFFFFFF
-            for block in mac:
-                _run_ptx(block, env)
-            env["m"] = env["t[0]"] * ninv & 0xFFFFFFFF
-            for block in redc:
-                _run_ptx(block, env)
-            for j in range(12):
-                env[f"t[{j}]"] = env[f"t[{j + 1}]"]
-            env["t[12]"] = 0
-        t = sum(env[f"t[{j}]"] << 32 * j for j in range(12))
-        assert t < 2 * P
-        assert (t - P if t >= P else t) == a * b * rinv % P

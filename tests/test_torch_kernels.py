@@ -166,12 +166,13 @@ def test_accumulate_pieces_match_plain_twin(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("groups,n,axis,to", [(4, 13, -1, 1), (4, 37, -1, 4), (5, 16, -2, 1),
-                                              (3, 1500, -1, 32), (2, 2100, -1, 1)])
+                                              (3, 1500, -1, 32), (2, 2100, -1, 1),
+                                              (2, 300, -1, 3), (2, 1000, -1, 3)])
 def test_tree_reduce_matches_plain_twin(cuda_device, groups, n, axis, to):
     """g1_tree_reduce against its plain twin, limb for limb, on groups
     whose first level pairs a point with itself, with its inverse, and
     identities on either side; widths past TREE_LANES fold while
-    loading.  The roots are the refimpl sums of their leaves."""
+    loading, also where `to` is not a power of two.  The roots are the refimpl sums of their leaves."""
     rng = random.Random(n)
     base = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(16)]
     half = (to << (-(-n // to) - 1).bit_length()) // 2
