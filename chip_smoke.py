@@ -17,9 +17,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and both, in a width that is no multiple of a block; K2 on it is also
    the check of the complete-add TPU kernel it replaces; K1 on runs of up
    to three pieces; the tree kernel on groups whose halves meet the same
-   point, its inverse or an identity), then the shapes the scale-20 main
-   path gives it, timed (kernel and plain): K1 at one commit's 2^23 rows,
-   the tree kernel over the trees of one BGMW reduction of its buckets.
+   point, its inverse or an identity; K3 on coordinates 0, 1, p - 1,
+   identities and lanes whose redundant values come near 2p, repeated 1,
+   3 and 16 times; K4 on all-identity terms, one finite lane, equal terms
+   and identity lanes), then the shapes the scale-20 main path gives it,
+   timed (kernel and plain): K1 at one commit's 2^23 rows, the tree kernel
+   over the trees of one BGMW reduction of its buckets, K4 at that
+   reduction's K = 16 terms of 64 lanes and at the tableless MSM's K = 260
+   terms of 32 lanes.
 2. The pinned protocol transcript (tests/fixtures) reproduced on the card.
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
    MSM of fourier_tpu_torch.native on the same row.
@@ -43,7 +48,7 @@ The main path is phases 4 to 6, four paths: the in-memory server, the
 file-loaded server, the tableless MSM at T = 2^19 and msm_naive at scale
 4.  Launches are counted from 0 before each path and read after it, and
 reported per path; a workerCommit of the in-memory server must launch no
-K2 and at most 6 tree kernels.  The line before the last is the kernels' JSON record;
+K2, at most 2 tree kernels and K4 once.  The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -191,6 +196,9 @@ def _adversarial(device):
     from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
     from fourier_tpu_torch.ops import curve as cv
     from fourier_tpu_torch.ops import kernels
+    from fourier_tpu_torch.ops.curve import G1Jac
+    from fourier_tpu_torch.ops.field import FP
+    from fourier_tpu_torch.ops.limbs import ints_to_vec
     from fourier_tpu_torch.ops.msm_fused import pack_points
 
     rng = random.Random(0x5EED)
@@ -227,9 +235,24 @@ def _adversarial(device):
     col = kernels.COUNTERS.collisions()["g1_madd"] - before
     check(col == same, f"g1_madd counted {col} doubling lanes, expected {same}")
 
-    got = kernels.g1_dbl(p, repeat=3)
-    plain = kernels.g1_dbl_plain(to_dev(p, "cpu"), 3)
-    check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "g1_dbl differs from its twin")
+    # K3 on the same lanes, and on coordinates 0, 1, p - 1, identities and
+    # lanes whose redundant doubling holds values nearest 2p after one step
+    pm = FP.modulus
+    lanes = [(0, 0, 0), (rng.randrange(pm), rng.randrange(pm), 0), (pm - 1, 1, 0), (1, 1, 1),
+             (pm - 1, pm - 1, pm - 1), (0, rng.randrange(pm), 1), (1, pm - 1, pm - 1)]
+    cands = [tuple(rng.randrange(pm) for _ in range(3)) for _ in range(3000)]
+    vals = [kernels.g1_dbl_redundant(*c) for c in cands]
+    lanes += [cands[i] for i in sorted(range(len(cands)),
+                                       key=lambda i: 2 * pm - max(vals[i][-3:]))[:6]]
+    lanes += [cands[i] for i in sorted(range(len(cands)), key=lambda i: 2 * pm - max(vals[i]))[:4]]
+    edge = G1Jac(*(torch.as_tensor(ints_to_vec([ln[k] for ln in lanes], 24).astype("int64"),
+                                   device=device) for k in range(3)))
+    for pts in (p, edge):
+        for repeat in (1, 3, 16):
+            got = kernels.g1_dbl(pts, repeat=repeat)
+            plain = kernels.g1_dbl_plain(to_dev(pts, "cpu"), repeat)
+            check(max_abs_err(to_dev(got, "cpu"), plain) == 0,
+                  f"g1_dbl differs from its twin ({pts.x.shape[1]} lanes x {repeat})")
 
     # K1: runs over a 64-row table with identities, negations, a repeated
     # row (doubling), a row and its negation (identity mid-run), empty
@@ -291,15 +314,37 @@ def _adversarial(device):
         check(max_abs_err(to_dev(got, "cpu"), plain) == 0,
               f"g1_tree_reduce differs from its twin ({groups} x {width} -> {to})")
 
-    # K4 over K = 6 terms of 37 lanes with identity lanes inside
-    K, width = 6, 37
-    pts = [rng.choice(base) for _ in range(K * width)]
-    pts[width + 3] = None
-    pts[5 * width + 1] = None
-    terms = to_dev(cv.from_affine(cv.affine_from_ints(pts)), device)
-    got = kernels.horner_2k(terms, width)
-    plain = kernels.horner_2k_plain(to_dev(terms, "cpu"), width)
-    check(max_abs_err(to_dev(got, "cpu"), plain) == 0, "horner_2k differs from its twin")
+    # K4: K = 6 terms of 37 lanes with identity lanes inside (two blocks);
+    # all-identity terms; one finite lane; equal terms (same-point adds in
+    # the fold and the tree); 70 terms of 3 lanes (two blocks, the last
+    # short); each against its twin and refimpl
+    P = base[0]
+    plans = []
+    pts = [rng.choice(base) for _ in range(6 * 37)]
+    pts[37 + 3] = None
+    pts[5 * 37 + 1] = None
+    plans.append(("identity lanes", 6, 37, pts))
+    plans.append(("all identity", 5, 8, [None] * 40))
+    one = [None] * (9 * 16)
+    one[7 * 16 + 5] = P
+    plans.append(("one finite lane", 9, 16, one))
+    plans.append(("equal terms", 8, 4, [P] * 32))
+    plans.append(("short last block", 70, 3, [rng.choice(base) for _ in range(210)]))
+    for label, K, width, pts in plans:
+        expect = None
+        for k in range(K):
+            for pt in pts[k * width:(k + 1) * width]:
+                expect = g1_add(expect, g1_mul(pt, 1 << k) if pt is not None else None)
+        terms = to_dev(cv.from_affine(cv.affine_from_ints(pts)), device)
+        before = kernels.COUNTERS.collisions()["horner_2k"]
+        got = kernels.horner_2k(terms, width)
+        plain = kernels.horner_2k_plain(to_dev(terms, "cpu"), width)
+        check(max_abs_err(to_dev(got, "cpu"), plain) == 0,
+              f"horner_2k differs from its twin ({label})")
+        check(cv.jac_to_int_points(got) == [expect], f"horner_2k differs from refimpl ({label})")
+        if label == "equal terms":
+            col = kernels.COUNTERS.collisions()["horner_2k"] - before
+            check(col > 0, "horner_2k counted no doubling lanes on equal terms")
 
 
 def _tree_work(p, axis, to):
@@ -324,7 +369,7 @@ def _tree_work(p, axis, to):
 def _tree_reduction(buckets, weights, c, signed, peak):
     """g1_tree_reduce over the trees of one BGMW reduction (rows, columns
     and spare slots in one launch, the two bit-partial-sum trees in a
-    second, the fold after K4 in a third), each launch's inputs recorded
+    second; K4 folds its residual lanes itself), each launch's inputs recorded
     from one run of the reduction: kernel against plain twin on them,
     exact; the kernel's time is that of all the launches, replayed back
     to back on a card kept busy while they are queued (host time between
@@ -332,10 +377,8 @@ def _tree_reduction(buckets, weights, c, signed, peak):
     trees."""
     import torch
 
-    from fourier_tpu_torch.ops import curve as cv
     from fourier_tpu_torch.ops import kernels
     from fourier_tpu_torch.ops import msm_fused as mf
-    from fourier_tpu_torch.ops.curve import G1Jac
 
     Bpow = 1 << (c - 1) if signed else 1 << c
     real = kernels.g1_tree_reduce
@@ -348,9 +391,6 @@ def _tree_reduction(buckets, weights, c, signed, peak):
     kernels.g1_tree_reduce = recorded
     try:
         terms = mf._weighted_sums_factored(buckets, weights, c, Bpow)
-        L, K, R = terms.x.shape
-        res = kernels.horner_2k(G1Jac(*(t.reshape(L, K * R) for t in terms)), width=R)
-        cv.fold_small(res)
     finally:
         kernels.g1_tree_reduce = real
     trees = [tree for launch in launches for tree in launch]
@@ -374,7 +414,8 @@ def _tree_reduction(buckets, weights, c, signed, peak):
                        for launch in launches)
     return (err, ms, plain_ms, f"{len(launches)} launches, {len(trees)} trees of one reduction "
             f"({shapes}; {adds} finite adds)",
-            bound(adds * PRODUCTS["add"] * MADS_PER_PRODUCT, sum(b for _, b in work), peak))
+            bound(adds * PRODUCTS["add"] * MADS_PER_PRODUCT, sum(b for _, b in work), peak),
+            terms)
 
 
 def _main_path_shapes(device, peak):
@@ -418,8 +459,28 @@ def _main_path_shapes(device, peak):
     del table, index, start, count, plain
 
     # the trees of one BGMW reduction of those buckets
-    results["g1_tree_reduce"] = _tree_reduction(buckets, weights, c, neg is not None, peak)
+    *tree, terms = _tree_reduction(buckets, weights, c, neg is not None, peak)
+    results["g1_tree_reduce"] = tuple(tree)
     del buckets, weights
+
+    # K4 on that reduction's terms (K = c, 64 lanes), and at the tableless
+    # MSM's shape (K = 20 windows x 13 bits, 32 lanes; random coordinates)
+    L, K, R = terms.x.shape
+    shapes = [(G1Jac(*(t.reshape(L, K * R) for t in terms)), R, 20),
+              (G1Jac(*(rand_fp(260 * 32, gen, device) for _ in range(3))), 32, 5)]
+    k4 = []
+    for flat, width, reps in shapes:
+        kernels.horner_2k(flat, width)
+        ms, got = cuda_ms(lambda: kernels.horner_2k(flat, width), reps)
+        plain_ms, plain = cuda_ms(lambda: kernels.horner_2k_plain(flat, width), 1)
+        n_terms = flat.x.shape[1] // width
+        finite = int((flat.z != 0).any(0).sum())
+        k4.append((max_abs_err(got, plain), ms, plain_ms, f"K={n_terms} x {width} lanes",
+                   bound((max(finite - 1, 0) * PRODUCTS["add"] + (n_terms - 1) * PRODUCTS["dbl"])
+                         * MADS_PER_PRODUCT, 3 * COORD_BYTES * (flat.x.shape[1] + 1), peak)))
+    results["horner_2k"] = k4[0]
+    results["horner_2k@tableless"] = k4[1]
+    del terms, shapes
 
     # K2: the widest level of the bucket-reduction trees
     n = 1 << (c - 1)
@@ -454,14 +515,6 @@ def _main_path_shapes(device, peak):
                                 8 * COORD_BYTES * T + T, peak))
     del p, q_aff, got, plain
 
-    # K4: the Horner combine, K = c terms of 64 residual lanes
-    terms = G1Jac(*(rand_fp(c * 64, gen, device) for _ in range(3)))
-    kernels.horner_2k(terms, 64)
-    ms, got = cuda_ms(lambda: kernels.horner_2k(terms, 64), 20)
-    plain_ms, plain = cuda_ms(lambda: kernels.horner_2k_plain(terms, 64), 1)
-    results["horner_2k"] = (max_abs_err(got, plain), ms, plain_ms, f"K={c} x 64 lanes",
-                            bound((c - 1) * 64 * (PRODUCTS["dbl"] + PRODUCTS["add"])
-                                  * MADS_PER_PRODUCT, 3 * COORD_BYTES * 64 * (c + 1), peak))
     return results
 
 
@@ -614,7 +667,7 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
     its log lines, the commitment of `fixed_row` (wire strings) at i = 0
     or None, the launches of its first workerCommit and workerOpen).
     `setup_kernels` must have run during the server's setup; a BGMW
-    workerCommit launches no K2 and at most 6 tree kernels."""
+    workerCommit launches no K2, at most 2 tree kernels and K4 once."""
     from fourier_tpu_torch.runtime import wire
 
     port = _free_port()
@@ -669,9 +722,11 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
             out, launches = rpc("workerCommit", {"i": i, "poly": row}, True)
             for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
                 check(launches[k] > 0, f"workerCommit ran no {k} kernel")
-            check(launches["g1_add"] == 0 and launches["g1_tree_reduce"] <= 6,
-                  f"workerCommit launched K2 {launches['g1_add']} times and the tree kernel "
-                  f"{launches['g1_tree_reduce']} times (expected 0 and at most 6)")
+            check(launches["g1_add"] == 0 and launches["g1_tree_reduce"] <= 2
+                  and launches["horner_2k"] == 1,
+                  f"workerCommit launched K2 {launches['g1_add']} times, the tree kernel "
+                  f"{launches['g1_tree_reduce']} times and K4 {launches['horner_2k']} times "
+                  f"(expected 0, at most 2 and 1)")
             per_request.setdefault("workerCommit", launches)
             com = out["commitment"]
             opened, launches = rpc("workerOpen", {"i": i, "poly": row, "x": alpha}, True)
@@ -892,16 +947,22 @@ def main() -> int:
     # `launches` is the count on the first path (in the order above) that
     # runs the kernel, named by `launches_path`; every path's own count is
     # in `launches_by_path`, and one workerCommit's and workerOpen's of the
-    # in-memory server in `launches_per_request`.
+    # in-memory server in `launches_per_request`.  `shape` names the inputs
+    # the numbers were taken on; `other_shapes` holds a kernel's numbers at
+    # a second shape of the main path (K4 at the tableless MSM's).
     first = {k: next(p for p, c in paths.items() if c[k] > 0) for k in KERNEL_INFO}
+
+    def numbers(res):
+        return {"shape": res[3], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
+                "bound_ms": res[4][0], "bound_by": res[4][1]}
+
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": paths[first[name]][name], "launches_path": first[name],
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "launches_per_request": {m: c[name] for m, c in per_request.items()},
-                "max_abs_err": results[name][0],
-                "ms": results[name][1], "plain_ms": results[name][2],
-                "bound_ms": results[name][4][0], "bound_by": results[name][4][1],
-                "library_ms": None}
+                **numbers(results[name]), "library_ms": None,
+                "other_shapes": [numbers(r) for k, r in results.items()
+                                 if k.startswith(name + "@")]}
                for name, (src, rep) in KERNEL_INFO.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
-// A microbenchmark of the Fp Montgomery product of the G1 kernels (fp_mul
-// of g1.cuh): one product per thread (for its SASS) and a dependent chain
-// of products per thread (for the rate over many lanes and the latency in
-// one warp).  kernel_probe.py builds it and counts its SASS.
+// A microbenchmark of the Fp Montgomery product and square of the G1
+// kernels (fp_mul, fp_sqr of g1.cuh): one per thread (for its SASS) and a
+// dependent chain per thread (for the rate over many lanes and the
+// latency in one warp).  kernel_probe.py builds it and counts its SASS.
 // Values are 12 x 32-bit words, word-major: word j of lane i at j * n + i.
 
 #include "g1.cuh"
@@ -27,6 +27,26 @@ __global__ void bench_one(const uint32_t *a, const uint32_t *b, uint32_t *r, int
   bench_store(r, n, i, z);
 }
 
+// One square per lane.
+__global__ void bench_sqr_one(const uint32_t *a, uint32_t *r, int64_t n) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp x, z;
+  bench_load(x, a, n, i);
+  fp_sqr(z, x);
+  bench_store(r, n, i, z);
+}
+
+// x := x^(2^iters) per lane, a dependent chain of squares.
+__global__ void __launch_bounds__(128) bench_sqr_chain(uint32_t *x, int iters, int64_t n) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp acc;
+  bench_load(acc, x, n, i);
+  for (int k = 0; k < iters; k++) fp_sqr(acc, acc);
+  bench_store(x, n, i, acc);
+}
+
 // x := x * b^iters per lane, a dependent chain: the rate over many lanes.
 __global__ void __launch_bounds__(128) bench_chain(uint32_t *x, const uint32_t *b, int iters,
                                                    int64_t n) {
@@ -48,5 +68,10 @@ extern "C" int fk_bench_one(const void *a, const void *b, void *r, int64_t n, vo
 extern "C" int fk_bench_chain(void *x, const void *b, int iters, int64_t n, void *stream) {
   bench_chain<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
       (uint32_t *)x, (const uint32_t *)b, iters, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fk_bench_sqr_chain(void *x, int iters, int64_t n, void *stream) {
+  bench_sqr_chain<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>((uint32_t *)x, iters, n);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,17 @@
 //
 // Fp elements are 12 x 32-bit little-endian words in Montgomery form with
 // radix 2^384, the radix of the reference's 24 x 16-bit limbs, so every
-// Montgomery value here equals the reference's as an integer.  All
-// arithmetic is canonical (values < p after every operation); a point
-// operation therefore returns exactly the limbs of the reference's
+// Montgomery value here equals the reference's as an integer.  The
+// additions' arithmetic is canonical (values < p after every operation);
+// a point operation therefore returns exactly the limbs of the reference's
 // complete formulas (fourier_tpu/ops/curve.py _dbl_impl, _add_impl,
 // _madd_impl): same algebra, same select order for identity operands.
+//
+// Doublings run in redundant form: p < 2^381 and R = 2^384, so 4p < R and
+// a Montgomery product or squaring of inputs below 2p ends below 2p with
+// no final subtraction; adds and subs reduce modulo 2p.  A chain of
+// doublings stays in [0, 2p) and is made canonical once (g1_dbl_n); the
+// canonical residue is unique, so the limbs equal the canonical chain's.
 //
 // The tensors the kernels read and write hold the reference layout:
 // int64 [24, B], limb k of lane i at k * stride + i, 16 bits per limb.
@@ -25,6 +31,9 @@
 static __constant__ uint32_t FP_P[FP_WORDS] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+static __constant__ uint32_t FP_2P[FP_WORDS] = {
+    0xffff5556u, 0x73fdffffu, 0x62a7ffffu, 0x3d57fffdu, 0xed61ec48u, 0xce61a541u,
+    0xe70a257eu, 0xc8ee9709u, 0x869759aeu, 0x96374f6cu, 0x72ffcd34u, 0x340223d4u};
 static __constant__ uint32_t FP_ONE[FP_WORDS] = {
     0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
     0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
@@ -57,13 +66,15 @@ __device__ __forceinline__ bool fp_is_zero(const Fp &a) {
   return acc == 0u;
 }
 
-// t := t - p when t >= p (t < 2p).
+// t := t - m when t >= m, for m = p (TWO_P false, t < 2p) or 2p (TWO_P
+// true, t < 4p).
+template <bool TWO_P = false>
 __device__ __forceinline__ void fp_reduce_once(uint32_t *t) {
   uint32_t d[FP_WORDS];
   uint32_t borrow = 0u;
 #pragma unroll
   for (int j = 0; j < FP_WORDS; j++) {
-    uint64_t s = (uint64_t)t[j] - FP_P[j] - borrow;
+    uint64_t s = (uint64_t)t[j] - (TWO_P ? FP_2P[j] : FP_P[j]) - borrow;
     d[j] = (uint32_t)s;
     borrow = (uint32_t)(s >> 32) & 1u;
   }
@@ -73,7 +84,10 @@ __device__ __forceinline__ void fp_reduce_once(uint32_t *t) {
   }
 }
 
-__device__ __forceinline__ void fp_add(Fp &r, const Fp &a, const Fp &b) {
+// a + b modulo m = p (TWO_P false: a, b < p) or 2p (TWO_P true: a, b < 2p);
+// a + b < 4p < 2^384 never carries out.
+template <bool TWO_P>
+__device__ __forceinline__ void fp_add_mod(Fp &r, const Fp &a, const Fp &b) {
   uint32_t t[FP_WORDS];
   uint64_t c = 0;
 #pragma unroll
@@ -82,12 +96,15 @@ __device__ __forceinline__ void fp_add(Fp &r, const Fp &a, const Fp &b) {
     t[j] = (uint32_t)s;
     c = s >> 32;
   }
-  fp_reduce_once(t);  // a + b < 2p < 2^384: no carry out
+  fp_reduce_once<TWO_P>(t);
 #pragma unroll
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[j];
 }
 
-__device__ __forceinline__ void fp_sub(Fp &r, const Fp &a, const Fp &b) {
+// a - b modulo m (as fp_add_mod): m is added back when a < b (the carry
+// out cancels the wrap).
+template <bool TWO_P>
+__device__ __forceinline__ void fp_sub_mod(Fp &r, const Fp &a, const Fp &b) {
   uint32_t t[FP_WORDS];
   uint32_t borrow = 0u;
 #pragma unroll
@@ -96,11 +113,11 @@ __device__ __forceinline__ void fp_sub(Fp &r, const Fp &a, const Fp &b) {
     t[j] = (uint32_t)s;
     borrow = (uint32_t)(s >> 32) & 1u;
   }
-  if (borrow) {  // a < b: add p back (the carry out cancels the wrap)
+  if (borrow) {
     uint64_t c = 0;
 #pragma unroll
     for (int j = 0; j < FP_WORDS; j++) {
-      uint64_t s = (uint64_t)t[j] + FP_P[j] + c;
+      uint64_t s = (uint64_t)t[j] + (TWO_P ? FP_2P[j] : FP_P[j]) + c;
       t[j] = (uint32_t)s;
       c = s >> 32;
     }
@@ -109,16 +126,24 @@ __device__ __forceinline__ void fp_sub(Fp &r, const Fp &a, const Fp &b) {
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[j];
 }
 
+__device__ __forceinline__ void fp_add(Fp &r, const Fp &a, const Fp &b) {
+  fp_add_mod<false>(r, a, b);
+}
+
+__device__ __forceinline__ void fp_sub(Fp &r, const Fp &a, const Fp &b) {
+  fp_sub_mod<false>(r, a, b);
+}
+
 __device__ __forceinline__ void fp_neg(Fp &r, const Fp &a) {
   Fp zero;
   fp_set_zero(zero);
   fp_sub(r, zero, a);
 }
 
-// Montgomery product a * b / 2^384 mod p, word-serial CIOS.  With a, b < p
-// the pre-reduction value is < 2p < 2^384, so t[12] ends at zero and one
-// conditional subtraction makes the result canonical.
-__device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
+// Montgomery product a * b / 2^384 mod p, word-serial CIOS, left in
+// [0, 2p) for a, b < 2p: the value (a b + M p) / 2^384 is < 2p because
+// 4p < 2^384, so t[12] ends at zero.
+__device__ __forceinline__ void fp_mul_lazy(Fp &r, const Fp &a, const Fp &b) {
   uint32_t t[FP_WORDS + 2];
 #pragma unroll
   for (int j = 0; j < FP_WORDS + 2; j++) t[j] = 0u;
@@ -147,12 +172,72 @@ __device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
     t[FP_WORDS - 1] = (uint32_t)s;
     t[FP_WORDS] = t[FP_WORDS + 1] + (uint32_t)(s >> 32);
   }
-  fp_reduce_once(t);
 #pragma unroll
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[j];
 }
 
-__device__ __forceinline__ void fp_sqr(Fp &r, const Fp &a) { fp_mul(r, a, a); }
+// Montgomery square a^2 / 2^384 mod p, left in [0, 2p) for a < 2p: the 66
+// cross products a_i a_j (i < j) once, doubled, plus the 12 squares a_i^2
+// (78 word products where the product takes 144), then the same
+// word-serial reduction, one word of the 24-word square at a time.
+__device__ __forceinline__ void fp_sqr_lazy(Fp &r, const Fp &a) {
+  uint32_t t[2 * FP_WORDS];
+#pragma unroll
+  for (int j = 0; j < 2 * FP_WORDS; j++) t[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS - 1; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < FP_WORDS; j++) {
+      uint64_t s = (uint64_t)a.w[i] * a.w[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + FP_WORDS] = (uint32_t)c;  // row i - 1 wrote up to t[i + 11]
+  }
+#pragma unroll
+  for (int j = 2 * FP_WORDS - 1; j > 0; j--) t[j] = (t[j] << 1) | (t[j - 1] >> 31);
+  t[0] <<= 1;
+  uint32_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; i++) {
+    uint64_t s = (uint64_t)a.w[i] * a.w[i] + t[2 * i] + c;
+    t[2 * i] = (uint32_t)s;
+    s = (s >> 32) + t[2 * i + 1];
+    t[2 * i + 1] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
+  }
+  // a^2 + M p < 2^766: the carry out of word i + 12 is deferred to word
+  // i + 13, which the next row's carry reaches after its own loop.
+  uint32_t hc = 0u;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; i++) {
+    const uint32_t m = t[i] * FP_NINV;
+    uint64_t cc = 0;
+#pragma unroll
+    for (int j = 0; j < FP_WORDS; j++) {
+      uint64_t s = (uint64_t)m * FP_P[j] + t[i + j] + cc;
+      t[i + j] = (uint32_t)s;
+      cc = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + FP_WORDS] + cc + hc;
+    t[i + FP_WORDS] = (uint32_t)s;
+    hc = (uint32_t)(s >> 32);
+  }
+#pragma unroll
+  for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[FP_WORDS + j];
+}
+
+// The canonical product and square: inputs < p, outputs < p.
+__device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
+  fp_mul_lazy(r, a, b);
+  fp_reduce_once(r.w);
+}
+
+__device__ __forceinline__ void fp_sqr(Fp &r, const Fp &a) {
+  fp_sqr_lazy(r, a);
+  fp_reduce_once(r.w);
+}
 
 // -- tensor layout -------------------------------------------------------------
 
@@ -191,37 +276,51 @@ __device__ __forceinline__ void store_jac(int64_t *x, int64_t *y, int64_t *z,
 
 // -- points --------------------------------------------------------------------
 
-// dbl-2009-l (curve.py _dbl_impl); the identity (z = 0) maps to z = 0.
-__device__ __forceinline__ void g1_dbl(Jac &r, const Jac &p) {
+// dbl-2009-l (curve.py _dbl_impl) in redundant form: coordinates in
+// [0, 2p) in and out.  The identity (z = 0, or p once redundant) stays
+// the identity: z3 = 2yz.
+__device__ __forceinline__ void g1_dbl_lazy(Jac &r, const Jac &p) {
   Fp a, b, c, d, e, f, t;
-  fp_sqr(a, p.x);
-  fp_sqr(b, p.y);
-  fp_sqr(c, b);
-  fp_add(t, p.x, b);
-  fp_sqr(d, t);
-  fp_sub(d, d, a);
-  fp_sub(d, d, c);
-  fp_add(d, d, d);           // d = 2((x + b)^2 - a - c)
-  fp_add(e, a, a);
-  fp_add(e, e, a);           // e = 3a
-  fp_sqr(f, e);
+  fp_sqr_lazy(a, p.x);
+  fp_sqr_lazy(b, p.y);
+  fp_sqr_lazy(c, b);
+  fp_add_mod<true>(t, p.x, b);
+  fp_sqr_lazy(d, t);
+  fp_sub_mod<true>(d, d, a);
+  fp_sub_mod<true>(d, d, c);
+  fp_add_mod<true>(d, d, d);           // d = 2((x + b)^2 - a - c)
+  fp_add_mod<true>(e, a, a);
+  fp_add_mod<true>(e, e, a);           // e = 3a
+  fp_sqr_lazy(f, e);
   Jac o;
-  fp_add(t, d, d);
-  fp_sub(o.x, f, t);         // x3 = e^2 - 2d
-  fp_add(c, c, c);
-  fp_add(c, c, c);
-  fp_add(c, c, c);           // 8c
-  fp_sub(t, d, o.x);
-  fp_mul(t, e, t);
-  fp_sub(o.y, t, c);         // y3 = e(d - x3) - 8c
-  fp_add(t, p.y, p.y);
-  fp_mul(o.z, t, p.z);       // z3 = 2yz
+  fp_add_mod<true>(t, d, d);
+  fp_sub_mod<true>(o.x, f, t);         // x3 = e^2 - 2d
+  fp_add_mod<true>(c, c, c);
+  fp_add_mod<true>(c, c, c);
+  fp_add_mod<true>(c, c, c);           // 8c
+  fp_sub_mod<true>(t, d, o.x);
+  fp_mul_lazy(t, e, t);
+  fp_sub_mod<true>(o.y, t, c);         // y3 = e(d - x3) - 8c
+  fp_add_mod<true>(t, p.y, p.y);
+  fp_mul_lazy(o.z, t, p.z);            // z3 = 2yz
   r = o;
+}
+
+// n doublings of p in place, in redundant form, then one canonical
+// reduction of each coordinate: the limbs of n canonical doublings.
+__device__ __forceinline__ void g1_dbl_n(Jac &p, int n) {
+  for (int k = 0; k < n; k++) g1_dbl_lazy(p, p);
+  fp_reduce_once(p.x.w);
+  fp_reduce_once(p.y.w);
+  fp_reduce_once(p.z.w);
 }
 
 // The doubling branch of the additions: a separate call keeps the rarely
 // taken path out of the inlined hot loop.
-static __device__ __noinline__ void g1_dbl_branch(Jac &r, const Jac &p) { g1_dbl(r, p); }
+static __device__ __noinline__ void g1_dbl_branch(Jac &r, const Jac &p) {
+  r = p;
+  g1_dbl_n(r, 1);
+}
 
 // Complete Jacobian addition (add-2007-bl, curve.py _add_impl).  Returns 1
 // when the same-point lane took the doubling branch, else 0.

@@ -253,9 +253,3 @@ def tree_reduce_axis(p: G1Jac, axis: int) -> G1Jac:
 
     return G1Jac(*(c.squeeze(axis) for c in kernels.g1_tree_reduce([(p, axis, 1)])[0]))
 
-
-def fold_small(p: G1Jac) -> G1Jac:
-    """Halving-tree reduce of a small last axis to [..., 1] (the residual
-    lanes left after the Horner combine).  The reference used its compact
-    complete add here; the kernels' additions are complete already."""
-    return tree_reduce_last(p, 1)

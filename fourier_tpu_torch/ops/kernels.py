@@ -7,7 +7,7 @@ plain PyTorch twins.
 | g1_add         | csrc/g1_add.cu     | ops/pallas_curve.py:_add_inc_kernel                        |
 | g1_tree_reduce | csrc/g1_tree.cu    | ops/pallas_curve.py:_add_inc_kernel in the halving trees of ops/curve.py |
 | g1_dbl         | csrc/g1_dbl.cu     | ops/pallas_curve.py:_dbl_kernel                            |
-| horner_2k      | csrc/horner_2k.cu  | ops/pallas_curve.py:horner_2k                              |
+| horner_2k      | csrc/horner_2k.cu  | ops/pallas_curve.py:horner_2k, and ops/msm.py:_horner_2k's fold |
 | g1_madd        | csrc/g1_madd.cu    | ops/pallas_curve.py:_madd_kernel                           |
 
 ops/pallas_curve.py:_add_kernel (the complete Jacobian add behind
@@ -16,7 +16,10 @@ The bucket-reduction trees, one K2 launch a level in the reference's
 form, run through g1_tree_reduce, one launch for up to TREE_MAX_TREES
 independent trees; K2 serves msm_naive's tree.  accumulate cuts each run
 into pieces of at most PIECE rows; its plain twin takes the piece size
-(None: whole runs, the reference's association).
+(None: whole runs, the reference's association).  horner_2k also takes in
+the fold of the residual lanes after the reference's Horner chain, and
+returns one point; g1_dbl and horner_2k's doublings run on redundant
+coordinates in [0, 2p) and store canonical limbs.
 
 The kernels are built with nvcc for sm_90a at first use, one nvcc per
 source, all started together, then linked into one library in
@@ -157,7 +160,7 @@ def build() -> ctypes.CDLL:
     lib.fk_g1_add.argtypes = [vp] * 9 + [i64, vp, vp]
     lib.fk_g1_tree_reduce.argtypes = [i32, vp, i32, vp, vp]
     lib.fk_g1_dbl.argtypes = [vp] * 6 + [i64, i32, vp]
-    lib.fk_horner_2k.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, vp]
+    lib.fk_horner_2k.argtypes = [vp, vp, vp, i64, i64, i32, i32] + [vp] * 6
     lib.fk_g1_madd.argtypes = [vp] * 9 + [i64, vp, vp]
     for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_tree_reduce, lib.fk_g1_dbl,
                lib.fk_horner_2k, lib.fk_g1_madd):
@@ -479,6 +482,49 @@ def g1_dbl_plain(p: G1Jac, repeat: int = 1) -> G1Jac:
     return p
 
 
+def g1_dbl_redundant(x: int, y: int, z: int) -> list:
+    """One doubling as K3 runs it (csrc/g1.cuh g1_dbl_lazy), on Montgomery
+    values as Python ints in [0, 2p): every value it holds, in order, the
+    last three being the x3, y3, z3 it carries to the next doubling.  A
+    product or square is (a b + M p) / 2^384 with M = -a b / p mod 2^384,
+    the value of the word-serial reduction; adds and subs reduce modulo
+    2p."""
+    p, p2, r = FP.modulus, 2 * FP.modulus, 1 << 384
+    neg_pinv = -pow(p, -1, r) % r
+
+    def mul(a, b):
+        t = a * b
+        return (t + (t * neg_pinv % r) * p) >> 384
+
+    def add(a, b):
+        return a + b - p2 if a + b >= p2 else a + b
+
+    def sub(a, b):
+        return a - b + p2 if a < b else a - b
+
+    a, b = mul(x, x), mul(y, y)
+    c = mul(b, b)
+    t = add(x, b)
+    s = mul(t, t)
+    d1 = sub(s, a)
+    d0 = sub(d1, c)
+    d = add(d0, d0)
+    e2 = add(a, a)
+    e = add(e2, a)
+    f = mul(e, e)
+    d2 = add(d, d)
+    x3 = sub(f, d2)
+    c2 = add(c, c)
+    c4 = add(c2, c2)
+    c8 = add(c4, c4)
+    u = sub(d, x3)
+    v = mul(e, u)
+    y3 = sub(v, c8)
+    y2 = add(y, y)
+    z3 = mul(y2, z)
+    return [a, b, c, t, s, d1, d0, d, e2, e, f, d2, c2, c4, c8, u, v, y2, x3, y3, z3]
+
+
 def g1_dbl(p: G1Jac, repeat: int = 1) -> G1Jac:
     """K3: `repeat` successive doublings of every lane, any batch shape."""
     if repeat < 0:
@@ -502,33 +548,87 @@ def g1_dbl(p: G1Jac, repeat: int = 1) -> G1Jac:
 
 # -- K4 horner_2k ---------------------------------------------------------------------
 
-def horner_2k_plain(terms: G1Jac, width: int) -> G1Jac:
-    K = terms.x.shape[1] // width
+# K4 keeps at most H4_LANES points of a block in shared memory, a term's
+# lanes rounded up to a power of two (also compiled into csrc/horner_2k.cu);
+# its last block sums at most H4_LANES block partials.
+H4_LANES = 256
 
-    def term(k):
-        return G1Jac(*(c[:, k * width:(k + 1) * width] for c in terms))
 
-    acc = term(K - 1)
-    for k in range(K - 2, -1, -1):
-        acc = cv.add(cv.dbl(acc), term(k))
-    return acc
+def horner_plan(n_terms: int, width: int) -> tuple[int, int, int]:
+    """(lanes a term takes, terms a block, blocks) of K4 for n_terms terms
+    of `width` lanes."""
+    if not 1 <= width <= H4_LANES:
+        raise ValueError(f"width {width} is not in [1, {H4_LANES}]")
+    rp = 1 << (width - 1).bit_length()
+    tpb = H4_LANES // rp
+    blocks = -(-n_terms // tpb)
+    if blocks > H4_LANES:
+        raise ValueError(f"{n_terms} terms of {width} lanes need {blocks} blocks, "
+                         f"over {H4_LANES}")
+    return rp, tpb, blocks
+
+
+def _pair_tree(p: G1Jac) -> G1Jac:
+    """Adjacent-pair tree over the last axis: at step s = 1, 2, 4, ...
+    point 2js takes point 2js + s, a point with no partner passes; returns
+    [..., 1]."""
+    while p.x.shape[-1] > 1:
+        n = p.x.shape[-1]
+        s = cv.add(G1Jac(*(c[..., 0:n - 1:2] for c in p)), G1Jac(*(c[..., 1::2] for c in p)))
+        p = s if n % 2 == 0 else G1Jac(*(torch.cat([a, c[..., n - 1:]], -1)
+                                         for a, c in zip(s, p)))
+    return p
+
+
+def horner_weighted_terms(terms: G1Jac, width: int) -> G1Jac:
+    """K4's first steps, plain: each term's `width` lanes folded by the
+    halving tree (lane i takes lane i + half, identities past width), then
+    folded term k doubled k times; returns [24, K]."""
+    K = terms.x.shape[-1] // width
+    folded = cv.halving_tree(G1Jac(*(c.reshape(FP_LIMBS, K, width) for c in terms)), -1, 1)
+    v = [c[..., 0].clone() for c in folded]
+    for s in range(1, K):
+        for c, d in zip(v, cv.dbl(G1Jac(*(c[:, s:] for c in v)))):
+            c[:, s:] = d
+    return G1Jac(*v)
+
+
+def horner_2k_plain(terms: G1Jac, width: int, block_terms: int | None = None) -> G1Jac:
+    """Plain twin of K4, in its order: the weighted terms of
+    horner_weighted_terms summed by the adjacent-pair tree; returns
+    [24, 1].  With block_terms (a power of two, the kernel's terms a
+    block), the terms are cut into runs of that many, each run summed to a
+    partial that carries its 2^(first k) weight, and the partials summed
+    by the same tree: the kernel's blocks, which continue the unsplit tree,
+    so both give the same limbs."""
+    v = horner_weighted_terms(terms, width)
+    if block_terms is None:
+        return _pair_tree(v)
+    K = v.x.shape[-1]
+    parts = [_pair_tree(G1Jac(*(c[:, k0:k0 + block_terms] for c in v)))
+             for k0 in range(0, K, block_terms)]
+    return _pair_tree(G1Jac(*(torch.cat(cs, -1) for cs in zip(*parts))))
 
 
 def horner_2k(terms: G1Jac, width: int) -> G1Jac:
-    """K4: sum_k 2^k * T_k per residual lane, for [24, K * width] terms
-    (term k in columns [k * width, (k + 1) * width)); returns [24, width]."""
+    """K4: the single point sum over k and r of 2^k * T_{k,r} for
+    [24, K * width] terms (term k in columns [k * width, (k + 1) * width)),
+    one launch; returns [24, 1]."""
     t = _coords(terms)
     n = t[0].shape[1]
     if width <= 0 or n == 0 or n % width:
         raise ValueError(f"{n} columns are not a positive multiple of width {width}")
+    rp, tpb, blocks = horner_plan(n // width, width)
     dev = t[0].device
     if dev.type == "cpu":
         return horner_2k_plain(G1Jac(*t), width)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = build()
-    out = _empty_like_coords(width, dev)
-    rc = lib.fk_horner_2k(*map(_ptr, t), n // width, width, *map(_ptr, out),
+    out = _empty_like_coords(1, dev)
+    scratch = torch.empty(blocks * 3 * FP_LIMBS // 2 + 1, dtype=torch.int32, device=dev)
+    rc = lib.fk_horner_2k(*map(_ptr, t), n // width, width, rp, tpb, _ptr(scratch),
+                          *map(_ptr, out),
                           _ptr(COUNTERS.collision_buffer("horner_2k", dev)), _stream(dev))
     COUNTERS.launches["horner_2k"] += 1
     _check(lib, "horner_2k", rc)

@@ -52,11 +52,10 @@ def _bit_partial_leaves(buckets: G1Jac, c: int) -> G1Jac:
 
 def _horner_2k(terms: G1Jac) -> G1Jac:
     """sum over k and r of 2^k * terms[:, k, r] for [L, K, R] terms;
-    returns the single point ([L] coordinates).  One K4 launch runs the R
-    chains acc = 2 * acc + T_k; the R residual lanes are folded after."""
+    returns the single point ([L] coordinates).  One K4 launch folds each
+    term's R residual lanes, weights the folded terms and sums them."""
     L, K, R = terms.x.shape
-    res = kernels.horner_2k(G1Jac(*(c.reshape(L, K * R) for c in terms)), width=R)
-    out = cv.fold_small(res)
+    out = kernels.horner_2k(G1Jac(*(c.reshape(L, K * R) for c in terms)), width=R)
     return G1Jac(*(c[..., 0] for c in out))
 
 

@@ -12,24 +12,34 @@ Sections (each printed; the whole report is printed last as one JSON
 object, and written to --out FILE where one is given):
 
 1. the card's name and power limit (nvidia-smi);
-2. with --sass, the Fp Montgomery product (csrc/fp_mul_bench.cu):
-   registers (ptxas), instructions of one product by opcode (cuobjdump
-   -sass of a one-product kernel), the rate of dependent chains over 2^20
-   lanes and the latency of one product in a single warp's chain (CUDA
-   events); then ptxas's registers, stack and spills for each kernel of
-   the library;
+2. with --sass, the Fp Montgomery product and square (csrc/fp_mul_bench.cu):
+   registers (ptxas), instructions of one product (one square) by opcode
+   (cuobjdump -sass of a one-product kernel), the rate of dependent chains
+   over 2^20 lanes and the latency of one product (square) in a single
+   warp's chain (CUDA events); then ptxas's registers, stack and spills
+   for each kernel of the library;
 3. K1 (accumulate) at the main path's shape: 2^23 table rows (16 windows x
    2^19 points, c = 16, unsigned digits) into 65,536 + 1,024 slots, kernel
    mean of 3 launches after a warm one;
 4. the reduction of those buckets: `_weighted_sums_factored` (the rows,
-   columns, bit and spare trees) and `fold_small` after the K4 Horner,
-   without K4: CUDA events around the calls (host time between launches
-   included) and host wall (after a synchronize), mean of 5 runs each,
-   and the launches of each kernel;
+   columns, bit and spare trees), then K4 on its [16, 64] terms with the
+   tree-kernel fold of the residual lanes after it where the package
+   returns more than one lane: CUDA events around the calls (host time
+   between launches included) and host wall (after a synchronize), mean
+   of 5 (the trees) or 20 (K4) runs each, and the launches of each kernel;
 5. the whole BGMW MSM (digits to one point) at that shape: CUDA events and
    host wall, mean of 3, and its launches;
-6. with --setup, only the in-memory server setup at scale 20 / machines 1
-   (host wall after a synchronize, and its launches), instead of 2-5.
+6. K4 (and its fold) at the tableless shape, K = 20 x 13 = 260 terms of 32
+   lanes (random Fp coordinates), mean of 5; K3 at 2^19 lanes x 16
+   doublings, mean of 5, and on one warp (32 lanes x 256 doublings: the
+   latency of a doubling); K2 at 32,768 lanes and K5 at 2^19 lanes, mean
+   of 20; all by CUDA events after a warm launch;
+7. worker_commit in process at T = 2^19 over random row points (c = 16
+   BGMW table, and tableless at c = 13): CUDA events around the call
+   (coefficient upload to affine point on the host), mean of 3 after a
+   warm one;
+8. with --setup, only the in-memory server setup at scale 20 / machines 1
+   (host wall after a synchronize, and its launches), instead of 2-7.
 
 To compare two trees, run the script on each in turn in one chip call
 (parent, change, change, parent): a tree's first run builds its kernels.
@@ -133,9 +143,11 @@ def fp_mul(build_dir):
     sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True,
                           text=True).stdout
     ops = _sass_opcodes(sass, "bench_one")
+    sqr_ops = _sass_opcodes(sass, "bench_sqr_one")
     lib = ctypes.CDLL(so)
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.fk_bench_chain.argtypes = [vp, vp, ci, i64, vp]
+    lib.fk_bench_sqr_chain.argtypes = [vp, ci, i64, vp]
     stream = torch.cuda.current_stream().cuda_stream
 
     def chain(x, m, k, lanes):
@@ -150,6 +162,15 @@ def fp_mul(build_dir):
     w = a32[0, :, :32].contiguous()
     m = a32[1, :, :32].contiguous()
     one_warp_ms, _ = cuda_ms(lambda: chain(w, m, 256, 32), 3)
+
+    def sqr_chain(x, k, lanes):
+        rc = lib.fk_bench_sqr_chain(x.data_ptr(), k, lanes, stream)
+        if rc != 0:
+            raise RuntimeError(f"bench_sqr_chain failed: CUDA error {rc}")
+
+    sqr_chain(y, iters, n)
+    sqr_ms, _ = cuda_ms(lambda: sqr_chain(y, iters, n), 3)
+    sqr_warp_ms, _ = cuda_ms(lambda: sqr_chain(w, 256, 32), 3)
     rec = {"registers": regs, "sass_total": sum(ops.values()),
            "sass_imad": sum(c for op, c in ops.items() if op.startswith("IMAD")),
            "sass_imad_wide": sum(c for op, c in ops.items() if op.startswith("IMAD.WIDE")),
@@ -157,13 +178,18 @@ def fp_mul(build_dir):
            "sass_iadd3": sum(c for op, c in ops.items() if op.startswith("IADD3")),
            "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12]),
            "chain_ms": ms, "products_per_s": n * iters / (ms * 1e-3),
-           "latency_us": one_warp_ms * 1e3 / 256}
+           "latency_us": one_warp_ms * 1e3 / 256,
+           "sqr_sass_total": sum(sqr_ops.values()),
+           "sqr_sass_imad": sum(c for op, c in sqr_ops.items() if op.startswith("IMAD")),
+           "sqr_per_s": n * iters / (sqr_ms * 1e-3), "sqr_latency_us": sqr_warp_ms * 1e3 / 256}
     log(f"fp_mul: {rec['sass_imad']} IMAD-class ({rec['sass_imad_wide']} wide, "
         f"{rec['sass_imad_mov']} moves), {rec['sass_iadd3']} IADD3, {rec['sass_total']} "
         f"SASS instructions in a one-product kernel; registers {regs}; "
         f"{n} lanes x {iters} dependent products {ms:.4f} ms = "
         f"{rec['products_per_s']:.4e} products/s; one warp: {rec['latency_us']:.4f} us a "
-        f"dependent product")
+        f"dependent product; fp_sqr: {rec['sqr_sass_imad']} IMAD-class, "
+        f"{rec['sqr_sass_total']} SASS instructions, {rec['sqr_per_s']:.4e} squares/s, one "
+        f"warp {rec['sqr_latency_us']:.4f} us a dependent square")
     return rec
 
 
@@ -215,7 +241,6 @@ def rand_fr(n, gen):
 def main_path(report):
     import torch
 
-    from fourier_tpu_torch.ops import curve as cv
     from fourier_tpu_torch.ops import kernels
     from fourier_tpu_torch.ops import msm_fused as mf
     from fourier_tpu_torch.ops.curve import G1Aff, G1Jac
@@ -241,28 +266,27 @@ def main_path(report):
     log(f"K1 accumulate at {shape}: {k1_ms:.4f} ms")
     del table, index, start, count
 
-    # the reduction around K4, without K4
+    # the reduction: its trees, then K4 (with the fold after it, where the
+    # package has one)
     Bpow = 1 << (c - 1) if neg is not None else 1 << c
     terms_launches, terms = launches_of(lambda: mf._weighted_sums_factored(buckets, weights,
                                                                            c, Bpow))
     sums_ms, _ = cuda_ms(lambda: mf._weighted_sums_factored(buckets, weights, c, Bpow), 5)
     sums_wall, _ = wall_ms(lambda: mf._weighted_sums_factored(buckets, weights, c, Bpow), 5)
     L, K, R = terms.x.shape
-    res = kernels.horner_2k(G1Jac(*(t.reshape(L, K * R) for t in terms)), width=R)
-    fold_launches, _ = launches_of(lambda: cv.fold_small(res))
-    fold_ms, _ = cuda_ms(lambda: cv.fold_small(res), 5)
-    fold_wall, _ = wall_ms(lambda: cv.fold_small(res), 5)
+    flat = G1Jac(*(t.reshape(L, K * R) for t in terms))
+    k4 = horner_step(flat, R, 20)
     red = {"weighted_sums_ms": sums_ms, "weighted_sums_wall_ms": sums_wall,
-           "weighted_sums_launches": terms_launches, "fold_ms": fold_ms,
-           "fold_wall_ms": fold_wall, "fold_launches": fold_launches,
-           "total_ms": sums_ms + fold_ms, "total_wall_ms": sums_wall + fold_wall,
+           "weighted_sums_launches": terms_launches, "k4": k4,
+           "total_ms": sums_ms + k4["ms"], "total_wall_ms": sums_wall + k4["wall_ms"],
            "terms_shape": [K, R]}
     report["reduction"] = red
     log(f"reduction of {buckets.x.shape[-1]} buckets (c = {c}): weighted sums "
-        f"{sums_ms:.4f} ms (wall {sums_wall:.4f} ms, launches {terms_launches}), fold "
-        f"{fold_ms:.4f} ms (wall {fold_wall:.4f} ms, launches {fold_launches}); total "
-        f"{sums_ms + fold_ms:.4f} ms on the card, {sums_wall + fold_wall:.4f} ms wall")
-    del buckets, terms, res
+        f"{sums_ms:.4f} ms (wall {sums_wall:.4f} ms, launches {terms_launches}); K4 at "
+        f"K = {K} x {R} lanes {k4['ms']:.4f} ms (wall {k4['wall_ms']:.4f} ms, K4 alone "
+        f"{k4['k4_ms']:.4f} ms, launches {k4['launches']}); total "
+        f"{sums_ms + k4['ms']:.4f} ms on the card, {sums_wall + k4['wall_ms']:.4f} ms wall")
+    del buckets, terms, flat
 
     # the whole MSM
     table = mf.pack_points(G1Aff(rand_fp(rows, gen), rand_fp(rows, gen), inf))
@@ -273,6 +297,108 @@ def main_path(report):
                      "points_per_s": T / (msm_wall * 1e-3)}
     log(f"BGMW MSM of {T} points (c = {c}): {msm_ms:.4f} ms on the card, wall "
         f"{msm_wall:.4f} ms, launches {msm_launches}")
+
+
+def horner_step(terms, width, reps):
+    """K4 over [24, K * width] terms, and the tree-kernel fold of its
+    residual lanes after it where the package's K4 returns more than one
+    lane (the parent's form): CUDA events and wall around both, K4 alone
+    by events, and the launches of one step."""
+    from fourier_tpu_torch.ops import curve as cv
+    from fourier_tpu_torch.ops import kernels
+
+    def step():
+        res = kernels.horner_2k(terms, width)
+        return cv.fold_small(res) if res.x.shape[-1] > 1 else res
+
+    launches, _ = launches_of(step)
+    ms, _ = cuda_ms(step, reps)
+    wall, _ = wall_ms(step, reps)
+    k4_ms, _ = cuda_ms(lambda: kernels.horner_2k(terms, width), reps)
+    return {"ms": ms, "wall_ms": wall, "k4_ms": k4_ms, "launches": launches, "reps": reps}
+
+
+def kernels_alone(report):
+    """K4 at the tableless shape, K3, K2 and K5 at the main path's shapes."""
+    import torch
+
+    from fourier_tpu_torch.ops import kernels
+    from fourier_tpu_torch.ops.curve import G1Aff, G1Jac
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    T = 1 << (SCALE - 1)
+    K, R = 20 * 13, 32
+    terms = G1Jac(*(rand_fp(K * R, gen) for _ in range(3)))
+    kernels.horner_2k(terms, R)
+    k4 = horner_step(terms, R, 5)
+    report["k4_tableless"] = dict(k4, shape=[K, R])
+    log(f"K4 at the tableless shape K = {K} x {R} lanes: {k4['ms']:.4f} ms with its fold "
+        f"(wall {k4['wall_ms']:.4f} ms, K4 alone {k4['k4_ms']:.4f} ms, launches "
+        f"{k4['launches']})")
+    del terms
+
+    p = G1Jac(*(rand_fp(T, gen) for _ in range(3)))
+    kernels.g1_dbl(p, 16)
+    k3_ms, _ = cuda_ms(lambda: kernels.g1_dbl(p, 16), 5)
+    warp = G1Jac(*(c[:, :32].contiguous() for c in p))
+    kernels.g1_dbl(warp, 256)
+    warp_ms, _ = cuda_ms(lambda: kernels.g1_dbl(warp, 256), 3)
+    report["k3"] = {"ms": k3_ms, "shape": [T, 16], "one_warp_dbl_us": warp_ms * 1e3 / 256}
+    log(f"K3 at {T} lanes x 16: {k3_ms:.4f} ms; one warp: {warp_ms * 1e3 / 256:.4f} us a "
+        f"dependent doubling")
+
+    n = min(1 << 15, T)
+    q = G1Jac(*(rand_fp(n, gen) for _ in range(3)))
+    a = G1Jac(*(c[:, :n].contiguous() for c in p))
+    kernels.g1_add(a, q)
+    k2_ms, _ = cuda_ms(lambda: kernels.g1_add(a, q), 20)
+    q_aff = G1Aff(rand_fp(T, gen), rand_fp(T, gen), torch.arange(T, device="cuda") % 64 == 0)
+    kernels.g1_madd(p, q_aff)
+    k5_ms, _ = cuda_ms(lambda: kernels.g1_madd(p, q_aff), 20)
+    report["k2"] = {"ms": k2_ms, "lanes": n}
+    report["k5"] = {"ms": k5_ms, "lanes": T}
+    log(f"K2 at {n} lanes: {k2_ms:.4f} ms; K5 at {T} lanes: {k5_ms:.4f} ms")
+
+
+def worker_commits(report):
+    """In-process worker_commit of one random row at T = 2^(SCALE-1): with
+    a BGMW table of random points (c = 16) and without one (the tableless
+    MSM, c = 13)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from fourier_tpu_torch.models.piano import PianoBackend, PianoPrecompute, PianoSettings
+    from fourier_tpu_torch.ops import msm_fused as mf
+    from fourier_tpu_torch.ops.curve import G1Aff
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    T = 1 << (SCALE - 1)
+    c = mf.bgmw_auto_window(T)
+    rows = -(-256 // c) * T
+    no_inf = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    u = G1Aff(rand_fp(T, gen)[:, None], rand_fp(T, gen)[:, None], no_inf[None, :T])
+    pre = PianoPrecompute(c=c, u_rows=[G1Aff(None, None, no_inf)])
+    pre._packed[0] = mf.pack_points(G1Aff(rand_fp(rows, gen), rand_fp(rows, gen), no_inf))
+    settings = PianoSettings(g=None, g_tau_x=None, g_tau_y=None, u=u, g2=None,
+                             g2_tau_x=None, g2_tau_y=None, precompute=pre)
+    fft = types.SimpleNamespace(T=T, M=1, device=torch.device("cuda"))
+    backend = PianoBackend(fft, settings, "cuda")
+    rng = np.random.default_rng(5)
+    limbs = rng.integers(0, 1 << 16, size=(16, T), dtype=np.int64)
+    limbs[15] = rng.integers(0, 0x73ED, size=T)
+    out = {}
+    for label, precompute in (("tabled", pre), ("tableless", None)):
+        settings.precompute = precompute
+        backend.worker_commit(0, limbs)
+        ms, _ = cuda_ms(lambda: backend.worker_commit(0, limbs), 3)
+        launches, _ = launches_of(lambda: backend.worker_commit(0, limbs))
+        out[label] = {"ms": ms, "launches": launches}
+        log(f"worker_commit in process, {label}, T = {T}: {ms:.4f} ms, launches {launches}")
+    report["worker_commit"] = out
 
 
 def setup_in_memory(report):
@@ -301,7 +427,7 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", help="also write the JSON report to this file")
     ap.add_argument("--setup", action="store_true",
-                    help="time only the in-memory server setup (section 6)")
+                    help="time only the in-memory server setup (section 8)")
     ap.add_argument("--sass", action="store_true",
                     help="also time the Fp product and count its SASS (section 2)")
     args = ap.parse_args()
@@ -331,6 +457,8 @@ def main() -> int:
         report["fp_mul"] = fp_mul(build_dir)
         report["ptxas"] = kernel_resources(build_dir)
     main_path(report)
+    kernels_alone(report)
+    worker_commits(report)
     return _write(report, args.out)
 
 

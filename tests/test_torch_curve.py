@@ -14,15 +14,18 @@ plain twins on a card are in test_torch_kernels.py.
 import os
 import random
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
-from fourier_tpu.constants import R
+from fourier_tpu.constants import FP_LIMBS, R
 from fourier_tpu.ops import curve as jcv
+from fourier_tpu.ops import msm as jmsm
 from fourier_tpu.ops import pallas_curve as pc
 from fourier_tpu.ops.field import FP as JFP
+from fourier_tpu.ops.limbs import ints_to_vec, vec_to_ints
 from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
 from fourier_tpu_torch.ops import curve as tcv
 from fourier_tpu_torch.ops import kernels
@@ -123,18 +126,22 @@ def test_complete_pallas_kernels_match_k5_and_k2(lanes, op, monkeypatch):
 def test_trees_match_jax(lanes):
     ps, qs = lanes
     jp, _, jq, tp, _, tq = _operands(ps[:37], qs[:37])
-    _same(jcv.tree_reduce_last(jp, to=4), tcv.tree_reduce_last(tp, to=4))
     grid_j = jcv.G1Jac(*(c[:, :36].reshape(c.shape[0], 12, 3) for c in jq))
     grid_t = tcv.G1Jac(*(c[:, :36].reshape(c.shape[0], 12, 3) for c in tq))
-    _same(jcv.tree_reduce_axis(grid_j, -2), tcv.tree_reduce_axis(grid_t, -2))
-    _same(jcv.tree_reduce_axis(grid_j, -1), tcv.tree_reduce_axis(grid_t, -1))
     small_j = jcv.G1Jac(*(c[:, :6] for c in jp))
     small_t = tcv.G1Jac(*(c[:, :6] for c in tp))
-    _same(jcv.fold_small(small_j), tcv.fold_small(small_t))
+    refs = (lambda: jcv.tree_reduce_last(jp, to=4), lambda: jcv.tree_reduce_axis(grid_j, -2),
+            lambda: jcv.tree_reduce_axis(grid_j, -1), lambda: jcv.fold_small(small_j))
+    with ThreadPoolExecutor(len(refs)) as pool:   # the reference's four compiles at once
+        want = [pool.submit(f) for f in refs]
+        got = [tcv.tree_reduce_last(tp, to=4), tcv.tree_reduce_axis(grid_t, -2),
+               tcv.tree_reduce_axis(grid_t, -1), tcv.tree_reduce_last(small_t, 1)]
+        for j, t in zip(want, got):
+            _same(j.result(), t)
     total = None
     for a in ps[:6]:
         total = g1_add(total, a)
-    assert tcv.jac_to_int_points(tcv.fold_small(small_t)) == [total]
+    assert tcv.jac_to_int_points(tcv.tree_reduce_last(small_t, 1)) == [total]
 
 
 @pytest.mark.parametrize("axis,to", [(-1, 1), (-1, 4), (-2, 1)])
@@ -240,6 +247,63 @@ def test_tree_kernel_limits_match_its_source():
         kernels.tree_plan((kernels.TREE_LANES << kernels.TREE_MAX_FAN_LEVELS) + 1, 1)
     with pytest.raises(ValueError):
         kernels.tree_plan(1000, kernels.TREE_LANES + 1)
+
+
+def test_horner_limits_match_its_source():
+    """K4's lane limit in kernels.py is the one compiled into
+    csrc/horner_2k.cu, and its plan refuses what the kernel cannot take."""
+    with open(os.path.join(kernels.CSRC, "horner_2k.cu")) as fh:
+        src = fh.read()
+    assert int(re.search(r"#define H4_LANES (\d+)", src).group(1)) == kernels.H4_LANES
+    assert kernels.horner_plan(16, 64) == (64, 4, 4)
+    assert kernels.horner_plan(260, 32) == (32, 8, 33)
+    assert kernels.horner_plan(6, 37) == (64, 4, 2)
+    with pytest.raises(ValueError):
+        kernels.horner_plan(4, kernels.H4_LANES + 1)
+    with pytest.raises(ValueError):
+        kernels.horner_plan(kernels.H4_LANES * 8 + 1, 32)
+
+
+def _dbl_lanes(rng):
+    """Montgomery (x, y, z) ints for K3: coordinates 0, 1 and p - 1,
+    identities (z = 0, with x and y zero or not), and the lanes of 3000
+    random ones whose redundant doubling carries (x3, y3, z3) closest to
+    2p, or holds any value closest to 2p."""
+    p = JFP.modulus
+    lanes = [(0, 0, 0), (rng.randrange(p), rng.randrange(p), 0), (p - 1, 1, 0),
+             (0, rng.randrange(p), rng.randrange(p)), (rng.randrange(p), 0, rng.randrange(p)),
+             (1, 1, 1), (p - 1, p - 1, p - 1), (1, p - 1, p - 1), (p - 1, 0, 1)]
+    cands = [tuple(rng.randrange(p) for _ in range(3)) for _ in range(3000)]
+    vals = [kernels.g1_dbl_redundant(*c) for c in cands]
+    carried = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i][-3:]))
+    held = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i]))
+    return lanes + [cands[i] for i in carried[:4] + held[:3]]
+
+
+@pytest.mark.parametrize("repeat", [1, 3, 16])
+def test_redundant_doubling_matches_jax_dbl_n(repeat):
+    """K3's chain in its redundant form (kernels.g1_dbl_redundant, the
+    values csrc/g1.cuh holds) stays in [0, 2p) and, made canonical, gives
+    the limbs of K3's plain twin, which equal the reference's _dbl_n limb
+    for limb; on coordinates 0, 1, p - 1, identities, and lanes whose
+    values come near 2p after one step."""
+    p = JFP.modulus
+    lanes = _dbl_lanes(random.Random(0xD8))
+    state = list(lanes)
+    for _ in range(repeat):
+        held = [kernels.g1_dbl_redundant(*s) for s in state]
+        assert all(0 <= v < 2 * p for vs in held for v in vs)
+        state = [tuple(vs[-3:]) for vs in held]
+    canon = [[v - p if v >= p else v for v in s] for s in state]
+    coords = [ints_to_vec([ln[k] for ln in lanes], FP_LIMBS) for k in range(3)]
+    jp = jcv.G1Jac(*(np.asarray(c, dtype=np.uint32) for c in coords))
+    tp = tcv.G1Jac(*(torch.as_tensor(c.astype(np.int64)) for c in coords))
+    got = kernels.g1_dbl(tp, repeat)
+    for _ in range(repeat):          # one compile of the reference's _dbl_n for every case
+        jp = jmsm._dbl_n(jp, 1)
+    _same(jp, got)
+    for k in range(3):
+        assert vec_to_ints(got[k].numpy()) == [s[k] for s in canon]
 
 
 def test_affine_conversions_match_jax(lanes):

@@ -12,9 +12,12 @@ K5 on it again with q affine (its plain twin, refimpl and the doubling
 count), a BGMW MSM with an infinity row, a zero scalar and a duplicated
 point with an equal scalar through K1, K2 and K4, and the tableless MSMs
 (msm through K1, the tree kernel and K4; msm_naive through K3, K5, K2),
-K1 on runs that span several pieces, and the tree kernel on groups
-whose halves meet the same point, its inverse or an identity, at widths
-below and past the lanes a block keeps.  Comparisons are exact.
+K1 on runs that span several pieces, the tree kernel on groups whose
+halves meet the same point, its inverse or an identity, at widths below
+and past the lanes a block keeps, K3 on coordinates 0, 1, p - 1,
+identities and lanes whose redundant values come near 2p, and K4 at the
+main path's shapes and on all-identity terms, one finite lane and equal
+terms.  Comparisons are exact.
 """
 
 import random
@@ -27,6 +30,7 @@ from fourier_tpu_torch.ops.limbs import ints_to_vec
 from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_add, g1_msm, g1_mul, g1_neg
 from fourier_tpu_torch.ops import curve as tcv
 from fourier_tpu_torch.ops import kernels
+from fourier_tpu_torch.ops.field import FP
 from fourier_tpu_torch.ops import msm as tmsm
 from fourier_tpu_torch.ops import msm_fused as tmf
 
@@ -204,3 +208,77 @@ def test_tree_reduce_matches_plain_twin(cuda_device, groups, n, axis, to):
                 total = g1_add(total, pt)
             sums.append(total)
     assert tcv.jac_to_int_points(roots) == sums
+
+
+def _dbl_lanes(rng):
+    """Montgomery (x, y, z) ints: coordinates 0, 1 and p - 1, identities,
+    and of 3000 random lanes those whose redundant doubling carries values
+    nearest 2p to the next step, or holds any value nearest 2p."""
+    p = FP.modulus
+    lanes = [(0, 0, 0), (rng.randrange(p), rng.randrange(p), 0), (p - 1, 1, 0), (1, 1, 1),
+             (p - 1, p - 1, p - 1), (0, rng.randrange(p), 1), (1, p - 1, p - 1),
+             (rng.randrange(p), 0, rng.randrange(p))]
+    cands = [tuple(rng.randrange(p) for _ in range(3)) for _ in range(3000)]
+    vals = [kernels.g1_dbl_redundant(*c) for c in cands]
+    carried = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i][-3:]))
+    held = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i]))
+    return lanes + [cands[i] for i in carried[:6] + held[:4]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeat", [1, 3, 16])
+def test_g1_dbl_edge_lanes_match_plain_twin(cuda_device, repeat):
+    """K3's redundant chain against its canonical twin, limb for limb."""
+    lanes = _dbl_lanes(random.Random(0xD8))
+    tp = tcv.G1Jac(*(torch.as_tensor(ints_to_vec([ln[k] for ln in lanes], 24).astype("int64"))
+                     for k in range(3)))
+    got = kernels.g1_dbl(_to(tp, cuda_device), repeat)
+    for a, b in zip(got, kernels.g1_dbl_plain(tp, repeat)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _rand_coords(n, gen):
+    x = torch.randint(0, 1 << 16, (24, n), generator=gen, dtype=torch.int64)
+    x[23] = torch.randint(0, 0x1A01, (n,), generator=gen, dtype=torch.int64)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,width", [(16, 64), (260, 32)])
+def test_horner_main_path_shapes_match_plain_twin(cuda_device, K, width):
+    """K4 at the BGMW reduction's shape (one block a 4 terms) and the
+    tableless MSM's (33 blocks, the last one short), on random
+    coordinates, against its twin limb for limb."""
+    gen = torch.Generator().manual_seed(K)
+    terms = tcv.G1Jac(*(_rand_coords(K * width, gen) for _ in range(3)))
+    got = kernels.horner_2k(_to(terms, cuda_device), width)
+    for a, b in zip(got, kernels.horner_2k_plain(terms, width)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all identity", "one finite lane", "equal terms"])
+def test_horner_edge_terms_match_plain_twin(cuda_device, kind):
+    """K4 on all-identity terms, one finite lane among identities, and
+    equal terms (same-point adds in the fold and the tree), across two
+    blocks: against its twin limb for limb and refimpl as a point."""
+    K, width = 6, 40
+    P = g1_mul(G1_GEN, 0xC0FFEE)
+    pts = [None] * (K * width)
+    if kind == "one finite lane":
+        pts[5 * width + 7] = P
+    elif kind == "equal terms":
+        pts = [P] * (K * width)
+    expect = None
+    for k in range(K):
+        for pt in pts[k * width:(k + 1) * width]:
+            if pt is not None:
+                expect = g1_add(expect, g1_mul(pt, 1 << k))
+    terms = tcv.from_affine(tcv.affine_from_ints(pts))
+    before = kernels.COUNTERS.collisions()["horner_2k"]
+    got = kernels.horner_2k(_to(terms, cuda_device), width)
+    for a, b in zip(got, kernels.horner_2k_plain(terms, width)):
+        assert torch.equal(a.cpu(), b)
+    assert tcv.jac_to_int_points(got) == [expect]
+    doubled = kernels.COUNTERS.collisions()["horner_2k"] - before
+    assert (doubled > 0) == (kind == "equal terms")

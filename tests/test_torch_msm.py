@@ -16,6 +16,7 @@ exact.
 """
 
 import random
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +30,7 @@ from fourier_tpu.ops import msm_fused as jmf
 from fourier_tpu.ops import pallas_curve as pc
 from fourier_tpu.ops.field import FP as JFP
 from fourier_tpu.ops.limbs import ints_to_vec
-from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_msm, g1_msm_fast, g1_mul
+from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_msm, g1_msm_fast, g1_mul, g1_neg
 from fourier_tpu_torch.ops import curve as tcv
 from fourier_tpu_torch.ops import kernels
 from fourier_tpu_torch.ops import msm as tmsm
@@ -155,8 +156,10 @@ def test_tableless_msm_matches_jax(n, kind):
         assert tmf._split_cap(n, 1 << 6) < n
     jsc, tsc = _scalar_pair(sc)
     assert tmsm._auto_window(n) == jmsm._auto_window(n) == 6
-    got = _point(tmsm.msm(tcv.affine_from_ints(pts), tsc))
-    assert got == _point(jmsm.msm(jcv.affine_from_ints(pts), jsc)) == g1_msm_fast(pts, sc)
+    with ThreadPoolExecutor(1) as pool:           # the reference alongside the port
+        want = pool.submit(lambda: _point(jmsm.msm(jcv.affine_from_ints(pts), jsc)))
+        got = _point(tmsm.msm(tcv.affine_from_ints(pts), tsc))
+        assert got == want.result() == g1_msm_fast(pts, sc)
 
 
 def test_msm_naive_matches_jax():
@@ -201,26 +204,96 @@ def test_window_digits_match_jax(c):
     assert tmf.bgmw_auto_window(1 << 12) == jmf.bgmw_auto_window(1 << 12) == 11
 
 
-def test_horner_matches_pallas_kernel(monkeypatch):
-    """K = 6 terms of width 4 with an identity lane, against
-    pallas_curve.horner_2k through the interpreter."""
+def _horner_terms(K, width, kind, rng):
+    """K terms of `width` refimpl points.  "identity": random points, lane 1
+    of term 2 at infinity.  "same-point": the points B + i S for random B
+    and S (one add each), the sum V_k of each term's lanes set so that the
+    kernel's tree meets the same point twice: V_2 = 2 V_3 (its first step
+    adds 2^2 V_2 and 2^3 V_3) and V_4 + 2 V_5 = 4 (V_6 + 2 V_7) (its second
+    step), with an identity lane in term 0."""
+    if kind == "identity":
+        terms = [[g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(width)] for _ in range(K)]
+        terms[2][1] = None
+        return terms
+    pt, step = (g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(2))
+    terms = []
+    for _ in range(K):
+        terms.append([])
+        for _ in range(width):
+            terms[-1].append(pt)
+            pt = g1_add(pt, step)
+    terms[0][1] = None
+    v = [None] * K
+    for k in range(K):
+        for pt in terms[k]:
+            v[k] = g1_add(v[k], pt)
+    want = {2: g1_mul(v[3], 2)}
+    if K > 7:
+        want[4] = g1_add(g1_mul(g1_add(v[6], g1_mul(v[7], 2)), 4), g1_neg(g1_mul(v[5], 2)))
+    for k, target in want.items():
+        rest = None
+        for pt in terms[k][1:]:
+            rest = g1_add(rest, pt)
+        terms[k][0] = g1_add(target, g1_neg(rest))
+    return terms
+
+
+HORNER_K = 13
+
+
+@pytest.mark.parametrize("K,kind", [(6, "identity"), (5, "same-point"), (HORNER_K, "same-point")])
+def test_horner_matches_pallas_kernel(monkeypatch, K, kind):
+    """K4's single point (its plain twin on the CPU) against
+    pallas_curve.horner_2k through the interpreter, at HORNER_K terms
+    (identities past K), whose width residual lanes fold_small sums, as
+    one group element, exact; and against refimpl.  K = 5 and 13 are no powers of two, and put same-point pairs
+    in the kernel's tree (the doubling branch)."""
     monkeypatch.setenv("FOURIER_PALLAS", "1")
     monkeypatch.setenv("FOURIER_PALLAS_INTERPRET", "1")
-    rng = random.Random(0x4042)
-    K, width = 6, 4
-    terms = [[g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(width)] for _ in range(K)]
-    terms[2][1] = None
+    rng = random.Random(0x4042 if kind == "identity" else 0x4042 + K)
+    width = 4
+    terms = _horner_terms(K, width, kind, rng)
     jac = jcv.from_affine(jcv.affine_from_ints([p for row in terms for p in row]))
-    jout = pc.horner_2k(jac.x, jac.y, jac.z, width=width)
+    # the reference runs at one shape for every case (one interpreter
+    # compile): terms past K are identities, which add nothing at 2^k
+    ref = jcv.from_affine(jcv.affine_from_ints(
+        [p for row in terms for p in row] + [None] * ((HORNER_K - K) * width)))
+    jout = jcv.fold_small(jcv.G1Jac(*pc.horner_2k(ref.x, ref.y, ref.z, width=width)))
     tout = kernels.horner_2k(_to_torch(jac), width)
-    _same(jout, tout)
+    assert tout.x.shape == (24, 1)
     expect = None
     for k in range(K):
         row = None
         for pt in terms[k]:
             row = g1_add(row, pt)
         expect = g1_add(expect, g1_mul(row, 1 << k))
-    assert tcv.jac_to_int_points(tcv.fold_small(tout)) == [expect]
+    assert tcv.jac_to_int_points(tout) == jcv.jac_to_int_points(jout) == [expect]
+    if kind == "same-point":
+        w = tcv.jac_to_int_points(kernels.horner_weighted_terms(_to_torch(jac), width))
+        assert w[2] == w[3]
+        if K > 7:
+            assert g1_add(w[4], w[5]) == g1_add(w[6], w[7])
+
+
+@pytest.mark.parametrize("K,width,block_terms", [(13, 4, 4), (9, 3, 2), (6, 8, 8)])
+def test_horner_block_split_matches_unsplit(K, width, block_terms):
+    """K4's block split on its plain twin: runs of block_terms terms whose
+    partials carry their 2^(first k) weights, summed by the tree that
+    continues each run's, give the unsplit twin's limbs; each partial is
+    2^(first k) times the unsplit sum of its run's own terms."""
+    rng = random.Random(K * 100 + width)
+    terms = _horner_terms(K, width, "same-point", rng)
+    pts = tcv.from_affine(tcv.affine_from_ints([p for row in terms for p in row]))
+    whole = kernels.horner_2k_plain(pts, width)
+    split = kernels.horner_2k_plain(pts, width, block_terms=block_terms)
+    for a, b in zip(whole, split):
+        assert torch.equal(a, b)
+    total = None
+    for k0 in range(0, K, block_terms):
+        run = tcv.G1Jac(*(c[:, k0 * width:min(K, k0 + block_terms) * width] for c in pts))
+        part = tcv.jac_to_int_points(kernels.horner_2k_plain(run, width))[0]
+        total = g1_add(total, g1_mul(part, 1 << k0))
+    assert tcv.jac_to_int_points(whole) == [total]
 
 
 def test_fixed_base_msm_matches_jax():

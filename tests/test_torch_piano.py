@@ -11,6 +11,7 @@ reproduces the pinned transcript, with its tables and without them.
 import json
 import os
 import random
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -41,8 +42,7 @@ def _secrets(fx):
     return tuple(bytes.fromhex(h) for h in fx["secrets_hex"])
 
 
-@pytest.fixture(scope="module")
-def jax_side(fx):
+def _jax_side(fx):
     """JAX settings with tables (as numpy) and a JAX backend without
     tables (its CPU MSM path)."""
     fft = jpiano.PianoFFTSettings(fx["scale"], fx["machines_scale"])
@@ -62,12 +62,30 @@ def jax_side(fx):
     return backend, numpy_settings
 
 
-@pytest.fixture(scope="module")
-def port_backend(fx):
+def _port_backend(fx):
     fft = tpiano.PianoFFTSettings(fx["scale"], fx["machines_scale"], "cpu")
     settings = tpiano.generate_trusted_setup(fft, _secrets(fx))
     settings.precompute = tpiano.PianoPrecompute.generate(settings)
     return tpiano.PianoBackend(fft, settings)
+
+
+@pytest.fixture(scope="module")
+def both_sides(fx):
+    """(_jax_side, _port_backend), the two setups built side by side."""
+    with ThreadPoolExecutor(1) as pool:
+        jax = pool.submit(_jax_side, fx)
+        port = _port_backend(fx)
+        return jax.result(), port
+
+
+@pytest.fixture(scope="module")
+def jax_side(both_sides):
+    return both_sides[0]
+
+
+@pytest.fixture(scope="module")
+def port_backend(both_sides):
+    return both_sides[1]
 
 
 def _same(a, b):
@@ -96,20 +114,28 @@ def test_converted_backend_matches_jax_bytes(fx, jax_side):
     rng = random.Random(0xB17E)
     rows = fx["rows"] + [[rng.randrange(R) for _ in range(backend.fft.T)]]
     in_domain = backend.fft.left_roots[3]
-    for i, row in enumerate(rows):
-        i %= backend.fft.M
-        com = backend.worker_commit(i, row)
-        assert g1_to_bytes(com) == g1_to_bytes(jbackend.worker_commit(i, row))
-        for alpha in (fx["alpha"], in_domain):
-            y, pi = backend.worker_open(i, row, alpha)
-            jy, jpi = jbackend.worker_open(i, row, alpha)
-            assert (fr_to_bytes(y), g1_to_bytes(pi)) == (fr_to_bytes(jy), g1_to_bytes(jpi))
-            assert backend.worker_verify(i, com, alpha, y, pi)
-    assert backend.fft.fft(rows[0], True, True) == jbackend.fft.fft(rows[0], True, True)
-    assert backend.fft.fft(rows[0][:2], False, False) == jbackend.fft.fft(rows[0][:2], False, False)
     # past 2048 coefficients evaluate runs on the device
     limbs = ints_to_vec([rng.randrange(R) for _ in range(3000)], FR_LIMBS)
-    assert backend.evaluate_limbs(limbs, fx["alpha"]) == jbackend.evaluate_limbs(limbs, fx["alpha"])
+
+    def answers(b, verify):
+        """Every answer of backend b as bytes or ints, in one order."""
+        out = []
+        for i, row in enumerate(rows):
+            i %= b.fft.M
+            com = b.worker_commit(i, row)
+            out.append(g1_to_bytes(com))
+            for alpha in (fx["alpha"], in_domain):
+                y, pi = b.worker_open(i, row, alpha)
+                out.append((fr_to_bytes(y), g1_to_bytes(pi)))
+                if verify:
+                    assert b.worker_verify(i, com, alpha, y, pi)
+        return out + [b.fft.fft(rows[0], True, True), b.fft.fft(rows[0][:2], False, False),
+                      b.evaluate_limbs(limbs, fx["alpha"])]
+
+    with ThreadPoolExecutor(1) as pool:           # the reference alongside the port
+        want = pool.submit(answers, jbackend, False)
+        got = answers(backend, True)
+        assert got == want.result()
 
 
 def test_port_reproduces_pinned_transcript(fx, port_backend):

@@ -10,6 +10,7 @@ checked for shape and canonicality.
 import json
 import threading
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
 
 import pytest
@@ -38,14 +39,24 @@ def _serve(module, backend):
     return httpd, thread
 
 
-@pytest.fixture(scope="module")
-def urls():
+def _jax_backend():
     jfft = jpiano.PianoFFTSettings(SCALE, MACHINES_SCALE)
-    jbackend = jpiano.PianoBackend(jfft, jpiano.generate_trusted_setup(jfft, SECRETS))
+    return jpiano.PianoBackend(jfft, jpiano.generate_trusted_setup(jfft, SECRETS))
+
+
+def _port_backend():
     tfft = tpiano.PianoFFTSettings(SCALE, MACHINES_SCALE, "cpu")
     tsettings = tpiano.generate_trusted_setup(tfft, SECRETS)
     tsettings.precompute = tpiano.PianoPrecompute.generate(tsettings)
-    tbackend = tpiano.PianoBackend(tfft, tsettings)
+    return tpiano.PianoBackend(tfft, tsettings)
+
+
+@pytest.fixture(scope="module")
+def urls():
+    with ThreadPoolExecutor(2) as pool:           # the two setups side by side
+        jax_future = pool.submit(_jax_backend)
+        tbackend = _port_backend()
+        jbackend = jax_future.result()
     servers = [_serve(jserver, jbackend), _serve(tserver, tbackend)]
     yield [f"http://127.0.0.1:{h.server_address[1]}/" for h, _ in servers]
     for httpd, thread in servers:
@@ -62,9 +73,11 @@ def _post(url, body: bytes) -> bytes:
 
 
 def _both(urls, method, params=None):
-    """(JAX answer, port answer) as raw bytes; asserts they are equal."""
+    """(JAX answer, port answer) as raw bytes, both servers asked at once;
+    asserts they are equal."""
     body = wire.serialize_request(method, params).encode()
-    ref, got = (_post(u, body) for u in urls)
+    with ThreadPoolExecutor(len(urls)) as pool:
+        ref, got = pool.map(lambda u: _post(u, body), urls)
     assert got == ref, method
     return json.loads(got)
 
