@@ -19,7 +19,7 @@
 // Occupancy: ptxas gives this kernel 128 registers (24 bytes of spill),
 // so an SM holds 512 threads whatever the block shape.  Blocks of 256
 // threads ran 4% faster than 128, 64, or any minimum-blocks cap, in one
-// paired measurement (PERF.md, PR 4).
+// paired measurement (PERF.md).
 
 #include "g1.cuh"
 
