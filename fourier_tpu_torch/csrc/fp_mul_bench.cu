@@ -1,8 +1,11 @@
 // A microbenchmark of the Fp Montgomery product and square of the G1
 // kernels (fp_mul, fp_sqr of g1.cuh): one per thread (for its SASS) and a
 // dependent chain per thread (for the rate over many lanes and the
-// latency in one warp).  kernel_probe.py builds it and counts its SASS.
-// Values are 12 x 32-bit words, word-major: word j of lane i at j * n + i.
+// latency in one warp); and dependent chains of the complete additions
+// (g1_add, g1_madd of g1.cuh), for an addition's latency in one warp.
+// kernel_probe.py builds it and counts its SASS.  Values are 12 x 32-bit
+// words, word-major: word j of lane i at j * n + i; a point is its x, y
+// and z one after the other (3 x 12 words a lane).
 
 #include "g1.cuh"
 
@@ -57,6 +60,50 @@ __global__ void __launch_bounds__(128) bench_chain(uint32_t *x, const uint32_t *
   bench_load(m, b, n, i);
   for (int k = 0; k < iters; k++) fp_mul(acc, acc, m);
   bench_store(x, n, i, acc);
+}
+
+__device__ __forceinline__ void bench_load_jac(Jac &p, const uint32_t *src, int64_t n,
+                                               int64_t i) {
+  bench_load(p.x, src, n, i);
+  bench_load(p.y, src + FP_WORDS * n, n, i);
+  bench_load(p.z, src + 2 * FP_WORDS * n, n, i);
+}
+
+__device__ __forceinline__ void bench_store_jac(uint32_t *dst, int64_t n, int64_t i,
+                                                const Jac &p) {
+  bench_store(dst, n, i, p.x);
+  bench_store(dst + FP_WORDS * n, n, i, p.y);
+  bench_store(dst + 2 * FP_WORDS * n, n, i, p.z);
+}
+
+// acc := acc + q per lane, iters times: the complete Jacobian addition
+// (mixed = 0) or the mixed addition with q's x and y (mixed = 1).
+template <int MIXED>
+__global__ void __launch_bounds__(128) bench_add_chain(uint32_t *acc, const uint32_t *q,
+                                                       int iters, int64_t n) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Jac a, b;
+  bench_load_jac(a, acc, n, i);
+  bench_load_jac(b, q, n, i);
+  for (int k = 0; k < iters; k++) {
+    if (MIXED)
+      g1_madd(a, a, b.x, b.y);
+    else
+      g1_add(a, a, b);
+  }
+  bench_store_jac(acc, n, i, a);
+}
+
+extern "C" int fk_bench_add_chain(void *acc, const void *q, int mixed, int iters, int64_t n,
+                                  void *stream) {
+  if (mixed)
+    bench_add_chain<1><<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+        (uint32_t *)acc, (const uint32_t *)q, iters, n);
+  else
+    bench_add_chain<0><<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+        (uint32_t *)acc, (const uint32_t *)q, iters, n);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fk_bench_one(const void *a, const void *b, void *r, int64_t n, void *stream) {

@@ -16,8 +16,10 @@ object, and written to --out FILE where one is given):
    registers (ptxas), instructions of one product (one square) by opcode
    (cuobjdump -sass of a one-product kernel), the rate of dependent chains
    over 2^20 lanes and the latency of one product (square) in a single
-   warp's chain (CUDA events); then ptxas's registers, stack and spills
-   for each kernel of the library;
+   warp's chain (CUDA events), and the latency of one complete add and
+   one mixed add (a chain of 64 dependent ones of random coordinates on
+   32 lanes); then ptxas's registers, stack and spills for each kernel of
+   the library;
 3. K1 (accumulate) at the main path's shape: 2^23 table rows (16 windows x
    2^19 points, c = 16, unsigned digits) into 65,536 + 1,024 slots, kernel
    mean of 3 launches after a warm one;
@@ -32,14 +34,19 @@ object, and written to --out FILE where one is given):
 6. K4 (and its fold) at the tableless shape, K = 20 x 13 = 260 terms of 32
    lanes (random Fp coordinates), mean of 5; K3 at 2^19 lanes x 16
    doublings, mean of 5, and on one warp (32 lanes x 256 doublings: the
-   latency of a doubling); K2 at 32,768 lanes and K5 at 2^19 lanes, mean
-   of 20; all by CUDA events after a warm launch;
-7. worker_commit in process at T = 2^19 over random row points (c = 16
+   latency of a doubling); K2 at 1, 2, 4 and 32 lanes (msm_naive's tree
+   levels) and 32,768, K5 at 8 and 64 lanes (msm_naive's rows) and 2^19,
+   mean of 20, and K5's ladder entry, where the package has one, at 8 and
+   64 lanes x 255 bits, mean of 5; all by CUDA events after a warm launch;
+7. msm_naive at 8 and 64 random points (events around the call and wall,
+   and its launches), and in-process worker_commit and worker_open of the
+   pinned scale-4 transcript's rows without tables (msm_naive);
+8. worker_commit in process at T = 2^19 over random row points (c = 16
    BGMW table, and tableless at c = 13): CUDA events around the call
    (coefficient upload to affine point on the host), mean of 3 after a
    warm one;
-8. with --setup, only the in-memory server setup at scale 20 / machines 1
-   (host wall after a synchronize, and its launches), instead of 2-7.
+9. with --setup, only the in-memory server setup at scale 20 / machines 1
+   (host wall after a synchronize, and its launches), instead of 2-8.
 
 To compare two trees, run the script on each in turn in one chip call
 (parent, change, change, parent): a tree's first run builds its kernels.
@@ -171,6 +178,27 @@ def fp_mul(build_dir):
     sqr_chain(y, iters, n)
     sqr_ms, _ = cuda_ms(lambda: sqr_chain(y, iters, n), 3)
     sqr_warp_ms, _ = cuda_ms(lambda: sqr_chain(w, 256, 32), 3)
+
+    # one warp's chain of 64 dependent complete (mixed) additions of
+    # random coordinates: the latency of one addition
+    lib.fk_bench_add_chain.argtypes = [vp, vp, ci, ci, i64, vp]
+    pts = torch.randint(0, 1 << 32, (2, 3, 12, 32), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    pts[:, :, 11] %= 0x1A0111EA
+    pts = (pts - ((pts >> 31) << 32)).to(torch.int32)
+    add_us = {}
+    for label, mixed in (("add", 0), ("madd", 1)):
+        acc = pts[0].clone()
+
+        def add_chain():
+            rc = lib.fk_bench_add_chain(acc.data_ptr(), pts[1].data_ptr(), mixed, 64, 32,
+                                        stream)
+            if rc != 0:
+                raise RuntimeError(f"bench_add_chain failed: CUDA error {rc}")
+
+        add_chain()
+        add_ms, _ = cuda_ms(add_chain, 3)
+        add_us[label] = add_ms * 1e3 / 64
     rec = {"registers": regs, "sass_total": sum(ops.values()),
            "sass_imad": sum(c for op, c in ops.items() if op.startswith("IMAD")),
            "sass_imad_wide": sum(c for op, c in ops.items() if op.startswith("IMAD.WIDE")),
@@ -181,7 +209,8 @@ def fp_mul(build_dir):
            "latency_us": one_warp_ms * 1e3 / 256,
            "sqr_sass_total": sum(sqr_ops.values()),
            "sqr_sass_imad": sum(c for op, c in sqr_ops.items() if op.startswith("IMAD")),
-           "sqr_per_s": n * iters / (sqr_ms * 1e-3), "sqr_latency_us": sqr_warp_ms * 1e3 / 256}
+           "sqr_per_s": n * iters / (sqr_ms * 1e-3), "sqr_latency_us": sqr_warp_ms * 1e3 / 256,
+           "add_latency_us": add_us["add"], "madd_latency_us": add_us["madd"]}
     log(f"fp_mul: {rec['sass_imad']} IMAD-class ({rec['sass_imad_wide']} wide, "
         f"{rec['sass_imad_mov']} moves), {rec['sass_iadd3']} IADD3, {rec['sass_total']} "
         f"SASS instructions in a one-product kernel; registers {regs}; "
@@ -189,7 +218,9 @@ def fp_mul(build_dir):
         f"{rec['products_per_s']:.4e} products/s; one warp: {rec['latency_us']:.4f} us a "
         f"dependent product; fp_sqr: {rec['sqr_sass_imad']} IMAD-class, "
         f"{rec['sqr_sass_total']} SASS instructions, {rec['sqr_per_s']:.4e} squares/s, one "
-        f"warp {rec['sqr_latency_us']:.4f} us a dependent square")
+        f"warp {rec['sqr_latency_us']:.4f} us a dependent square; one warp: "
+        f"{rec['add_latency_us']:.4f} us a dependent complete add, "
+        f"{rec['madd_latency_us']:.4f} us a dependent mixed add")
     return rec
 
 
@@ -348,17 +379,81 @@ def kernels_alone(report):
     log(f"K3 at {T} lanes x 16: {k3_ms:.4f} ms; one warp: {warp_ms * 1e3 / 256:.4f} us a "
         f"dependent doubling")
 
-    n = min(1 << 15, T)
-    q = G1Jac(*(rand_fp(n, gen) for _ in range(3)))
-    a = G1Jac(*(c[:, :n].contiguous() for c in p))
-    kernels.g1_add(a, q)
-    k2_ms, _ = cuda_ms(lambda: kernels.g1_add(a, q), 20)
-    q_aff = G1Aff(rand_fp(T, gen), rand_fp(T, gen), torch.arange(T, device="cuda") % 64 == 0)
-    kernels.g1_madd(p, q_aff)
-    k5_ms, _ = cuda_ms(lambda: kernels.g1_madd(p, q_aff), 20)
-    report["k2"] = {"ms": k2_ms, "lanes": n}
-    report["k5"] = {"ms": k5_ms, "lanes": T}
-    log(f"K2 at {n} lanes: {k2_ms:.4f} ms; K5 at {T} lanes: {k5_ms:.4f} ms")
+    # K2 at msm_naive's tree levels (1-32 lanes) and at 32,768 lanes (its
+    # throughput reading); K5 at msm_naive's rows (8, 64 lanes) and 2^19
+    k2, k5 = {}, {}
+    for n in (1, 2, 4, 32, 1 << 15):
+        q = G1Jac(*(rand_fp(n, gen) for _ in range(3)))
+        a = G1Jac(*(c[:, :n].contiguous() for c in p))
+        kernels.g1_add(a, q)
+        k2[n], _ = cuda_ms(lambda: kernels.g1_add(a, q), 20)
+    for n in (8, 64, T):
+        q_aff = G1Aff(rand_fp(n, gen), rand_fp(n, gen), torch.arange(n, device="cuda") % 64 == 0)
+        a = G1Jac(*(c[:, :n].contiguous() for c in p))
+        kernels.g1_madd(a, q_aff)
+        k5[n], _ = cuda_ms(lambda: kernels.g1_madd(a, q_aff), 20)
+    report["k2"] = {"ms_by_lanes": k2}
+    report["k5"] = {"ms_by_lanes": k5}
+    log(f"K2 ms by lanes: {k2}; K5 ms by lanes: {k5}")
+    if hasattr(kernels, "g1_madd_ladder"):
+        ladder = {}
+        for n in (8, 64):
+            pts = G1Aff(rand_fp(n, gen), rand_fp(n, gen),
+                        torch.zeros(n, dtype=torch.bool, device="cuda"))
+            sc = rand_fr(n, gen)
+            kernels.g1_madd_ladder(pts, sc, 255)
+            ladder[n], _ = cuda_ms(lambda: kernels.g1_madd_ladder(pts, sc, 255), 5)
+        report["ladder"] = {"ms_by_lanes": ladder, "nbits": 255}
+        log(f"K5 ladder (255 bits) ms by lanes: {ladder}")
+
+
+def msm_naive_calls(report):
+    """msm_naive (every lane's double-and-add, then K2's tree) on 8 and
+    64 random points with random 255-bit scalars: CUDA events around the
+    call and host wall, mean of 5 after a warm one, and its launches; then
+    in-process worker_commit and worker_open of the pinned scale-4
+    transcript's two rows without tables (8 points a row, msm_naive), each
+    by events and wall, mean of 3 after a warm one."""
+    import torch
+
+    from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
+                                                generate_trusted_setup)
+    from fourier_tpu_torch.ops import msm as msm_mod
+    from fourier_tpu_torch.ops.curve import G1Aff
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    out = {}
+    for n in (8, 64):
+        pts = G1Aff(rand_fp(n, gen), rand_fp(n, gen),
+                    torch.zeros(n, dtype=torch.bool, device="cuda"))
+        sc = rand_fr(n, gen)
+        launches, _ = launches_of(lambda: msm_mod.msm_naive(pts, sc))
+        ms, _ = cuda_ms(lambda: msm_mod.msm_naive(pts, sc), 5)
+        wall, _ = wall_ms(lambda: msm_mod.msm_naive(pts, sc), 5)
+        out[n] = {"ms": ms, "wall_ms": wall, "launches": launches}
+        log(f"msm_naive of {n} points: {ms:.4f} ms on the card, wall {wall:.4f} ms, "
+            f"launches {launches}")
+    report["msm_naive"] = out
+
+    with open(os.path.join(ROOT, "tests", "fixtures", "protocol_transcript_s4_m1.json")) as fh:
+        fx = json.load(fh)
+    fft = PianoFFTSettings(fx["scale"], fx["machines_scale"], "cuda")
+    settings = generate_trusted_setup(fft, tuple(bytes.fromhex(h) for h in fx["secrets_hex"]))
+    backend = PianoBackend(fft, settings, "cuda")        # no precompute: msm_naive
+    rows = []
+    for i, row in enumerate(fx["rows"]):
+        rec = {}
+        for label, call in (("commit", lambda: backend.worker_commit(i, row)),
+                            ("open", lambda: backend.worker_open(i, row, fx["alpha"]))):
+            launches, _ = launches_of(call)
+            ms, _ = cuda_ms(call, 3)
+            wall, _ = wall_ms(call, 3)
+            rec[label] = {"ms": ms, "wall_ms": wall, "launches": launches}
+            log(f"transcript row {i} worker_{label} without a table: {ms:.4f} ms on the card, "
+                f"wall {wall:.4f} ms, launches {launches}")
+        rows.append(rec)
+    report["transcript_rows"] = rows
 
 
 def worker_commits(report):
@@ -427,7 +522,7 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", help="also write the JSON report to this file")
     ap.add_argument("--setup", action="store_true",
-                    help="time only the in-memory server setup (section 8)")
+                    help="time only the in-memory server setup (section 9)")
     ap.add_argument("--sass", action="store_true",
                     help="also time the Fp product and count its SASS (section 2)")
     args = ap.parse_args()
@@ -458,6 +553,7 @@ def main() -> int:
         report["ptxas"] = kernel_resources(build_dir)
     main_path(report)
     kernels_alone(report)
+    msm_naive_calls(report)
     worker_commits(report)
     return _write(report, args.out)
 
