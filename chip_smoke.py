@@ -19,12 +19,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    to three pieces; the tree kernel on groups whose halves meet the same
    point, its inverse or an identity; K3 on coordinates 0, 1, p - 1,
    identities and lanes whose redundant values come near 2p, repeated 1,
-   3 and 16 times; K4 on all-identity terms, one finite lane, equal terms
-   and identity lanes), then the shapes the scale-20 main path gives it,
-   timed (kernel and plain): K1 at one commit's 2^23 rows, the tree kernel
-   over the trees of one BGMW reduction of its buckets, K4 at that
-   reduction's K = 16 terms of 64 lanes and at the tableless MSM's K = 260
-   terms of 32 lanes.
+   3 and 16 times; K2 and K5 on such lanes too, with P = Q and P = -Q;
+   K5's ladder at 8 and 64 lanes and 0, 1 and 255 bits, with a point at
+   infinity and scalars 0, 1, r - 1 and r + 2; K4 on all-identity terms,
+   one finite lane, equal terms and identity lanes), then the shapes the
+   scale-20 main path gives it, timed (kernel and plain): K1 at one
+   commit's 2^23 rows, the tree kernel over the trees of one BGMW
+   reduction of its buckets, K4 at that reduction's K = 16 terms of 64
+   lanes and at the tableless MSM's K = 260 terms of 32 lanes; K5's
+   ladder, K2 and K5 at msm_naive's shapes (rows of 8 and 64 points, tree
+   levels of 1 to 32 lanes) and at their throughput shapes.
 2. The pinned protocol transcript (tests/fixtures) reproduced on the card.
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
    MSM of fourier_tpu_torch.native on the same row.
@@ -42,7 +46,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. Tableless: on that in-process backend, row 0 without its table commits
    and opens to the tabled bytes (K1, the tree kernel, K4); the
    pinned transcript's rows (8 points each) without tables take msm_naive
-   (K3, K5, K2).
+   (K5's ladder, then K2), and so does a 64-point MSM held against
+   refimpl: each msm_naive call must launch the ladder once, K3 and the
+   batched K5 never and K2 at most ceil(log2 n) times.
 
 The main path is phases 4 to 6, four paths: the in-memory server, the
 file-loaded server, the tableless MSM at T = 2^19 and msm_naive at scale
@@ -81,6 +87,8 @@ KERNEL_INFO = {
     "g1_dbl": ("fourier_tpu_torch/csrc/g1_dbl.cu", "fourier_tpu/ops/pallas_curve.py:224"),
     "horner_2k": ("fourier_tpu_torch/csrc/horner_2k.cu", "fourier_tpu/ops/pallas_curve.py:255"),
     "g1_madd": ("fourier_tpu_torch/csrc/g1_madd.cu", "fourier_tpu/ops/pallas_curve.py:198"),
+    "g1_madd_ladder": ("fourier_tpu_torch/csrc/g1_madd.cu",
+                       "fourier_tpu/ops/pallas_curve.py:198"),
 }
 
 # Work counts for the bounds.  A Montgomery product of 12-word Fp values
@@ -97,6 +105,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 # (the arithmetic-instruction throughput table of the CUDA C++ Programming
 # Guide); the peak is this x SMs x the card's maximum SM clock.
 IMAD_PER_CLOCK_PER_SM = 64
+# The latency of one dependent Fp product and square in one warp's chain,
+# microseconds (kernel_probe.py --sass on an H100 80GB HBM3 at 700 W): the
+# latency floor of a point operation is its products and squares in
+# series, of a ladder its longest lane's chain of them.
+PRODUCT_US, SQUARE_US = 1.916, 1.064
+OP_US = {"add": 11 * PRODUCT_US + 5 * SQUARE_US, "madd": 7 * PRODUCT_US + 4 * SQUARE_US,
+         "dbl": 2 * PRODUCT_US + 5 * SQUARE_US}
 
 
 class SmokeFailure(Exception):
@@ -148,6 +163,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def queued_ms(fn, reps):
+    """Mean milliseconds of fn() over reps runs, by CUDA events, the
+    launches queued behind ~50 ms of sleep on the card: device time, host
+    time between launches not counted (for launches of a few lanes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    return cuda_ms(fn, reps)
+
+
 def to_dev(p, device):
     return type(p)(*(c.to(device) for c in p))
 
@@ -196,7 +222,7 @@ def _adversarial(device):
     from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
     from fourier_tpu_torch.ops import curve as cv
     from fourier_tpu_torch.ops import kernels
-    from fourier_tpu_torch.ops.curve import G1Jac
+    from fourier_tpu_torch.ops.curve import G1Aff, G1Jac
     from fourier_tpu_torch.ops.field import FP
     from fourier_tpu_torch.ops.limbs import ints_to_vec
     from fourier_tpu_torch.ops.msm_fused import pack_points
@@ -235,7 +261,57 @@ def _adversarial(device):
     col = kernels.COUNTERS.collisions()["g1_madd"] - before
     check(col == same, f"g1_madd counted {col} doubling lanes, expected {same}")
 
-    # K3 on the same lanes, and on coordinates 0, 1, p - 1, identities and
+    # K2 and K5 on the edge lanes of their redundant form (identities with
+    # x and y zero or not, P = Q also scaled, P = -Q, 0, 1, p - 1, values
+    # nearest 2p) against their canonical twins, same-point lanes counted
+    def limbs(vals):
+        return torch.as_tensor(ints_to_vec(list(vals), 24).astype("int64"), device=device)
+
+    for op in ("add", "madd"):
+        pairs = kernels.addition_edge_lanes(rng, op == "madd")
+        a = G1Jac(*(limbs(u[k] for u, _ in pairs) for k in range(3)))
+        if op == "madd":
+            b = G1Aff(limbs(v[0] for _, v in pairs), limbs(v[1] for _, v in pairs),
+                      torch.zeros(len(pairs), dtype=torch.bool, device=device))
+            same = sum(1 for u, v in pairs if u[2] and kernels.affine_ints(u) == v)
+            run, plain_fn = kernels.g1_madd, kernels.g1_madd_plain
+        else:
+            b = G1Jac(*(limbs(v[k] for _, v in pairs) for k in range(3)))
+            same = sum(1 for u, v in pairs
+                       if u[2] and v[2] and kernels.affine_ints(u) == kernels.affine_ints(v))
+            run, plain_fn = kernels.g1_add, kernels.g1_add_plain
+        before = kernels.COUNTERS.collisions()["g1_" + op]
+        got = run(a, b)
+        check(max_abs_err(to_dev(got, "cpu"), plain_fn(to_dev(a, "cpu"), to_dev(b, "cpu"))) == 0,
+              f"g1_{op} differs from its twin on the edge lanes")
+        col = kernels.COUNTERS.collisions()["g1_" + op] - before
+        check(col == same, f"g1_{op} counted {col} doubling lanes on the edge lanes, "
+                           f"expected {same}")
+
+    # K5's ladder: curve points with one at infinity, scalars 0, 1, r - 1,
+    # r + 2 (the sum meets the point before the last bit: the doubling
+    # branch) and random ones, at 8 and 64 lanes, 0, 1 and 255 bits
+    for n in (8, 64):
+        pts = [rng.choice(base) for _ in range(n)]
+        pts[5] = None
+        sc = [0, 1, R - 1, R + 2, R + 2] + [rng.randrange(R) for _ in range(n - 5)]
+        aff = cv.affine_from_ints(pts)
+        tsc = torch.as_tensor(ints_to_vec(sc, 16).astype("int64"))
+        for nbits in (0, 1, 255):
+            before = kernels.COUNTERS.collisions()["g1_madd"]
+            got = kernels.g1_madd_ladder(to_dev(aff, device), tsc.to(device), nbits)
+            plain = kernels.g1_madd_ladder_plain(aff, tsc, nbits)
+            check(max_abs_err(to_dev(got, "cpu"), plain) == 0,
+                  f"g1_madd_ladder differs from its twin ({n} lanes, {nbits} bits)")
+            mask = (1 << nbits) - 1
+            check(cv.jac_to_int_points(got) == [g1_mul(pt, s & mask) if pt is not None else None
+                                                for pt, s in zip(pts, sc)],
+                  f"g1_madd_ladder differs from refimpl ({n} lanes, {nbits} bits)")
+            col = kernels.COUNTERS.collisions()["g1_madd"] - before
+            check(col == (2 if nbits == 255 else 0),
+                  f"g1_madd_ladder counted {col} doubling steps ({n} lanes, {nbits} bits)")
+
+    # K3 on the curve lanes, and on coordinates 0, 1, p - 1, identities and
     # lanes whose redundant doubling holds values nearest 2p after one step
     pm = FP.modulus
     lanes = [(0, 0, 0), (rng.randrange(pm), rng.randrange(pm), 0), (pm - 1, 1, 0), (1, 1, 1),
@@ -482,17 +558,23 @@ def _main_path_shapes(device, peak):
     results["horner_2k@tableless"] = k4[1]
     del terms, shapes
 
-    # K2: the widest level of the bucket-reduction trees
-    n = 1 << (c - 1)
-    p = G1Jac(*(rand_fp(n, gen, device) for _ in range(3)))
-    q = G1Jac(*(rand_fp(n, gen, device) for _ in range(3)))
-    kernels.g1_add(p, q)
-    ms, got = cuda_ms(lambda: kernels.g1_add(p, q), 20)
-    plain_ms, plain = cuda_ms(lambda: kernels.g1_add_plain(p, q), 1)
-    finite = int(((p.z != 0).any(0) & (q.z != 0).any(0)).sum())
-    results["g1_add"] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes",
-                         bound(finite * PRODUCTS["add"] * MADS_PER_PRODUCT,
-                               9 * COORD_BYTES * n, peak))
+    # K2 at msm_naive's tree levels (4, 2, 1 lanes for the transcript's
+    # 8-point rows, 32 for a 64-point row) and at 32,768 lanes (its
+    # throughput reading); device time of launches queued on a busy card
+    k2 = {}
+    for n in (4, 2, 1, 32, 1 << 15):
+        p = G1Jac(*(rand_fp(n, gen, device) for _ in range(3)))
+        q = G1Jac(*(rand_fp(n, gen, device) for _ in range(3)))
+        kernels.g1_add(p, q)
+        ms, got = queued_ms(lambda: kernels.g1_add(p, q), 20)
+        plain_ms, plain = cuda_ms(lambda: kernels.g1_add_plain(p, q), 1)
+        finite = int(((p.z != 0).any(0) & (q.z != 0).any(0)).sum())
+        k2[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes",
+                 bound(finite * PRODUCTS["add"] * MADS_PER_PRODUCT, 9 * COORD_BYTES * n, peak),
+                 OP_US["add"] * 1e-3)
+    results["g1_add"] = k2.pop(4)
+    for n, res in k2.items():
+        results[f"g1_add@{n}"] = res
 
     # K3: c doublings of a whole row between two table windows
     p = G1Jac(*(rand_fp(T, gen, device) for _ in range(3)))
@@ -503,17 +585,47 @@ def _main_path_shapes(device, peak):
                          bound(T * c * PRODUCTS["dbl"] * MADS_PER_PRODUCT,
                                6 * COORD_BYTES * T, peak))
 
-    # K5: T lanes of p + q, q affine with one lane in 64 at infinity
-    q_aff = G1Aff(rand_fp(T, gen, device), rand_fp(T, gen, device),
-                  torch.arange(T, device=device) % 64 == 0)
-    kernels.g1_madd(p, q_aff)
-    ms, got = cuda_ms(lambda: kernels.g1_madd(p, q_aff), 20)
-    plain_ms, plain = cuda_ms(lambda: kernels.g1_madd_plain(p, q_aff), 1)
-    finite = int(((p.z != 0).any(0) & ~q_aff.inf).sum())
-    results["g1_madd"] = (max_abs_err(got, plain), ms, plain_ms, f"{T} lanes",
-                          bound(finite * PRODUCTS["madd"] * MADS_PER_PRODUCT,
-                                8 * COORD_BYTES * T + T, peak))
+    # K5: 2^19 lanes of p + q, q affine with one lane in 64 at infinity
+    # (its throughput reading; no path of the port launches the batched
+    # entry), and msm_naive's rows of 8 and 64 lanes
+    k5 = {}
+    for n in (T, 8, 64):
+        a = G1Jac(*(c[:, :n].contiguous() for c in p))
+        q_aff = G1Aff(rand_fp(n, gen, device), rand_fp(n, gen, device),
+                      torch.arange(n, device=device) % 64 == 0)
+        kernels.g1_madd(a, q_aff)
+        ms, got = queued_ms(lambda: kernels.g1_madd(a, q_aff), 20)
+        plain_ms, plain = cuda_ms(lambda: kernels.g1_madd_plain(a, q_aff), 1)
+        finite = int(((a.z != 0).any(0) & ~q_aff.inf).sum())
+        k5[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes",
+                 bound(finite * PRODUCTS["madd"] * MADS_PER_PRODUCT,
+                       8 * COORD_BYTES * n + n, peak), OP_US["madd"] * 1e-3)
+    results["g1_madd"] = k5.pop(T)
+    for n, res in k5.items():
+        results[f"g1_madd@{n}"] = res
     del p, q_aff, got, plain
+
+    # K5's ladder at msm_naive's rows (8 and 64 points, 255-bit scalars).
+    # Work: a finite lane's nbits - 1 doublings and a mixed add a set bit;
+    # the latency floor is the longest lane's chain of them
+    ladder = {}
+    for n in (8, 64):
+        pts = G1Aff(rand_fp(n, gen, device), rand_fp(n, gen, device),
+                    torch.zeros(n, dtype=torch.bool, device=device))
+        sc = rand_fr(n, gen, device)
+        nbits = 255
+        kernels.g1_madd_ladder(pts, sc, nbits)
+        ms, got = queued_ms(lambda: kernels.g1_madd_ladder(pts, sc, nbits), 5)
+        plain_ms, plain = cuda_ms(lambda: kernels.g1_madd_ladder_plain(pts, sc, nbits), 1)
+        ones = [sum(bin(int(v)).count("1") for v in col) for col in sc.T.tolist()]
+        madds = [k for k, fin in zip(ones, (~pts.inf).tolist()) if fin]
+        mads = sum((nbits - 1) * PRODUCTS["dbl"] + k * PRODUCTS["madd"] for k in madds)
+        floor_us = max((nbits - 1) * OP_US["dbl"] + k * OP_US["madd"] for k in madds)
+        ladder[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes x {nbits} bits",
+                     bound(mads * MADS_PER_PRODUCT, (5 * COORD_BYTES + 1 + 32) * n, peak),
+                     floor_us * 1e-3)
+    results["g1_madd_ladder"] = ladder.pop(8)
+    results["g1_madd_ladder@64"] = ladder[64]
 
     return results
 
@@ -525,9 +637,10 @@ def phase1_kernels(device, peak):
     log(f"phase 1: adversarial lanes exact; launches {kernels.COUNTERS.launches}, "
         f"doubling-branch lanes {kernels.COUNTERS.collisions()}")
     results = _main_path_shapes(device, peak)
-    for name, (err, ms, plain_ms, shape, (bound_ms, bound_by)) in results.items():
+    for name, (err, ms, plain_ms, shape, (bound_ms, bound_by), *floor) in results.items():
         log(f"phase 1: {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err}")
+            f"bound {bound_ms:.4f} ms ({bound_by})"
+            + (f", latency floor {floor[0]:.4f} ms" if floor else "") + f", max_abs_err {err}")
         check(err == 0, f"{name} differs from its plain twin at main-path shapes")
     return results
 
@@ -846,10 +959,15 @@ def phase6_tableless(b, limbs):
     take msm_naive."""
     import torch
 
+    from fourier_tpu_torch.constants import R
     from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                                 generate_trusted_setup)
+    from fourier_tpu_torch.ops import curve as cv
+    from fourier_tpu_torch.ops import msm as msm_mod
+    from fourier_tpu_torch.ops.curve import G1Jac
     from fourier_tpu_torch.ops.kernels import COUNTERS
-    from fourier_tpu_torch.refimpl.curve import g1_to_bytes
+    from fourier_tpu_torch.ops.limbs import ints_to_vec
+    from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_msm, g1_mul, g1_to_bytes
     from fourier_tpu_torch.refimpl.field import fr_to_bytes
     from fourier_tpu_torch.runtime import wire
 
@@ -886,19 +1004,56 @@ def phase6_tableless(b, limbs):
     fft = PianoFFTSettings(fx["scale"], fx["machines_scale"], "cuda")
     settings = generate_trusted_setup(fft, tuple(bytes.fromhex(h) for h in fx["secrets_hex"]))
     small = PianoBackend(fft, settings)                  # no precompute: every row tableless
-    COUNTERS.reset()
-    for i, row in enumerate(fx["rows"]):
-        com = small.worker_commit(i, row)
-        y, pi = small.worker_open(i, row, fx["alpha"])
-        check(wire.b64_encode(g1_to_bytes(com)) == fx["commitments"][i]
-              and wire.b64_encode(fr_to_bytes(y)) == fx["evals"][i]
-              and wire.b64_encode(g1_to_bytes(pi)) == fx["proofs"][i],
-              f"tableless transcript row {i}")
-    naive = dict(COUNTERS.launches)
-    for k in ("g1_madd", "g1_dbl", "g1_add"):
-        check(naive[k] > 0, f"msm_naive launched no {k} kernel")
+    real = msm_mod.msm_naive
+    calls = []
+
+    def recorded(points, scalars):
+        """msm_naive, with the launches of each call recorded."""
+        before = dict(COUNTERS.launches)
+        out = real(points, scalars)
+        calls.append((points.x.shape[-1],
+                      {k: COUNTERS.launches[k] - before[k] for k in KERNEL_INFO}))
+        return out
+
+    msm_mod.msm_naive = recorded
+    try:
+        COUNTERS.reset()
+        for i, row in enumerate(fx["rows"]):
+            com = small.worker_commit(i, row)
+            y, pi = small.worker_open(i, row, fx["alpha"])
+            check(wire.b64_encode(g1_to_bytes(com)) == fx["commitments"][i]
+                  and wire.b64_encode(fr_to_bytes(y)) == fx["evals"][i]
+                  and wire.b64_encode(g1_to_bytes(pi)) == fx["proofs"][i],
+                  f"tableless transcript row {i}")
+        naive = dict(COUNTERS.launches)
+        # the path's full width: 64 points (one at infinity) against refimpl
+        rng = random.Random(64)
+        pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(64)]
+        pts[7] = None
+        sc = [rng.randrange(R) for _ in range(64)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = msm_mod.msm_naive(to_dev(cv.affine_from_ints(pts), "cuda"),
+                                torch.as_tensor(ints_to_vec(sc, 16).astype("int64"),
+                                                device="cuda"))
+        torch.cuda.synchronize()
+        wide_ms = (time.perf_counter() - t0) * 1e3
+        check(cv.jac_to_int_points(G1Jac(*(c[..., None] for c in got))) == [g1_msm(pts, sc)],
+              "msm_naive of 64 points differs from refimpl")
+    finally:
+        msm_mod.msm_naive = real
+    check(len(calls) == 2 * len(fx["rows"]) + 1, f"{len(calls)} msm_naive calls recorded")
+    for n, launches in calls:
+        check(launches["g1_madd_ladder"] == 1 and launches["g1_dbl"] == 0
+              and launches["g1_madd"] == 0 and launches["g1_add"] <= (n - 1).bit_length(),
+              f"an msm_naive call of {n} points launched the ladder "
+              f"{launches['g1_madd_ladder']} times, K3 {launches['g1_dbl']}, the batched K5 "
+              f"{launches['g1_madd']} and K2 {launches['g1_add']} times (expected 1, 0, 0 and "
+              f"at most {(n - 1).bit_length()})")
     log(f"phase 6: the pinned transcript's rows commit and open tableless (msm_naive); "
-        f"launches {naive}")
+        f"launches {naive}; a 64-point msm_naive equals refimpl ({wide_ms:.3f} ms wall), "
+        f"launches {calls[-1][1]}; every msm_naive call launched the ladder once, K3 and the "
+        f"batched K5 never, K2 at most ceil(log2 n) times")
     return big, naive
 
 
@@ -945,19 +1100,28 @@ def main() -> int:
         log(f"launches per {method} (phase 4): {dict((k, counts[k]) for k in KERNEL_INFO)}")
     log(f"whole run {time.perf_counter() - t_start:.3f} s")
     # `launches` is the count on the first path (in the order above) that
-    # runs the kernel, named by `launches_path`; every path's own count is
+    # runs the kernel, named by `launches_path` (0 and null for the batched
+    # K5, which no path of the port launches: msm_naive runs its ladder
+    # entry, and the reference's _madd_kernel has no serving caller either);
+    # every path's own count is
     # in `launches_by_path`, and one workerCommit's and workerOpen's of the
     # in-memory server in `launches_per_request`.  `shape` names the inputs
     # the numbers were taken on; `other_shapes` holds a kernel's numbers at
-    # a second shape of the main path (K4 at the tableless MSM's).
-    first = {k: next(p for p, c in paths.items() if c[k] > 0) for k in KERNEL_INFO}
+    # its other shapes (K4 at the tableless MSM's; K2, K5 and the ladder at
+    # msm_naive's and at their throughput shapes); `latency_floor_ms`, where
+    # present, is the chain of dependent products the launch cannot beat.
+    first = {k: next((p for p, c in paths.items() if c[k] > 0), None) for k in KERNEL_INFO}
 
     def numbers(res):
-        return {"shape": res[3], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
-                "bound_ms": res[4][0], "bound_by": res[4][1]}
+        out = {"shape": res[3], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
+               "bound_ms": res[4][0], "bound_by": res[4][1]}
+        if len(res) > 5:
+            out["latency_floor_ms"] = res[5]
+        return out
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": paths[first[name]][name], "launches_path": first[name],
+                "launches": paths[first[name]][name] if first[name] else 0,
+                "launches_path": first[name],
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "launches_per_request": {m: c[name] for m, c in per_request.items()},
                 **numbers(results[name]), "library_ms": None,

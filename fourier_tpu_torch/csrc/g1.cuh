@@ -3,17 +3,17 @@
 //
 // Fp elements are 12 x 32-bit little-endian words in Montgomery form with
 // radix 2^384, the radix of the reference's 24 x 16-bit limbs, so every
-// Montgomery value here equals the reference's as an integer.  The
-// additions' arithmetic is canonical (values < p after every operation);
-// a point operation therefore returns exactly the limbs of the reference's
-// complete formulas (fourier_tpu/ops/curve.py _dbl_impl, _add_impl,
-// _madd_impl): same algebra, same select order for identity operands.
+// Montgomery value here equals the reference's as an integer.
 //
-// Doublings run in redundant form: p < 2^381 and R = 2^384, so 4p < R and
-// a Montgomery product or squaring of inputs below 2p ends below 2p with
-// no final subtraction; adds and subs reduce modulo 2p.  A chain of
-// doublings stays in [0, 2p) and is made canonical once (g1_dbl_n); the
-// canonical residue is unique, so the limbs equal the canonical chain's.
+// The point formulas run in redundant form: p < 2^381 and R = 2^384, so
+// 4p < R and a Montgomery product or squaring of inputs below 2p ends
+// below 2p with no final subtraction; adds and subs reduce modulo 2p, and
+// a zero test asks for 0 or p.  Every step keeps its value's residue mod
+// p, so a chain of doublings (g1_dbl_n), or an addition (g1_add, g1_madd),
+// made canonical once at its output returns exactly the limbs of the
+// reference's canonical complete formulas (fourier_tpu/ops/curve.py
+// _dbl_impl, _add_impl, _madd_impl): same algebra, same select order for
+// identity operands; the canonical residue is unique.
 //
 // The tensors the kernels read and write hold the reference layout:
 // int64 [24, B], limb k of lane i at k * stride + i, 16 bits per limb.
@@ -59,11 +59,15 @@ __device__ __forceinline__ void fp_set_one(Fp &r) {
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = FP_ONE[j];
 }
 
-__device__ __forceinline__ bool fp_is_zero(const Fp &a) {
-  uint32_t acc = 0u;
+// a == 0 mod p for a in [0, 2p): a is 0 or p.
+__device__ __forceinline__ bool fp_is_zero_lazy(const Fp &a) {
+  uint32_t zero = 0u, is_p = 0u;
 #pragma unroll
-  for (int j = 0; j < FP_WORDS; j++) acc |= a.w[j];
-  return acc == 0u;
+  for (int j = 0; j < FP_WORDS; j++) {
+    zero |= a.w[j];
+    is_p |= a.w[j] ^ FP_P[j];
+  }
+  return zero == 0u || is_p == 0u;
 }
 
 // t := t - m when t >= m, for m = p (TWO_P false, t < 2p) or 2p (TWO_P
@@ -126,18 +130,11 @@ __device__ __forceinline__ void fp_sub_mod(Fp &r, const Fp &a, const Fp &b) {
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[j];
 }
 
-__device__ __forceinline__ void fp_add(Fp &r, const Fp &a, const Fp &b) {
-  fp_add_mod<false>(r, a, b);
-}
-
-__device__ __forceinline__ void fp_sub(Fp &r, const Fp &a, const Fp &b) {
-  fp_sub_mod<false>(r, a, b);
-}
-
+// -a mod p for a < p.
 __device__ __forceinline__ void fp_neg(Fp &r, const Fp &a) {
   Fp zero;
   fp_set_zero(zero);
-  fp_sub(r, zero, a);
+  fp_sub_mod<false>(r, zero, a);
 }
 
 // Montgomery product a * b / 2^384 mod p, word-serial CIOS, left in
@@ -228,7 +225,47 @@ __device__ __forceinline__ void fp_sqr_lazy(Fp &r, const Fp &a) {
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[FP_WORDS + j];
 }
 
-// The canonical product and square: inputs < p, outputs < p.
+// How a point formula takes its products.  Inline: each product and
+// square expanded in place, so that the scheduler overlaps a formula's
+// independent ones; the form for kernels that keep many warps an SM busy.
+struct InlineProducts {
+  static __device__ __forceinline__ void mul(Fp &r, const Fp &a, const Fp &b) {
+    fp_mul_lazy(r, a, b);
+  }
+  static __device__ __forceinline__ void sqr(Fp &r, const Fp &a) { fp_sqr_lazy(r, a); }
+};
+
+// Called: one out-of-line body of the product and one of the square, its
+// operands by value.  An inlined mixed add and doubling are some 22,000
+// instructions, more than the instruction cache holds, so one warp's chain
+// of them waits on instruction fetch; the called form runs from two bodies
+// of ~1,200 instructions.  The form for a kernel of a few warps whose time
+// is one thread's chain.
+static __device__ __noinline__ Fp fp_mul_lazy_called(const Fp a, const Fp b) {
+  Fp r;
+  fp_mul_lazy(r, a, b);
+  return r;
+}
+
+static __device__ __noinline__ Fp fp_sqr_lazy_called(const Fp a) {
+  Fp r;
+  fp_sqr_lazy(r, a);
+  return r;
+}
+
+struct CalledProducts {
+  static __device__ __forceinline__ void mul(Fp &r, const Fp &a, const Fp &b) {
+    r = fp_mul_lazy_called(a, b);
+  }
+  static __device__ __forceinline__ void sqr(Fp &r, const Fp &a) { r = fp_sqr_lazy_called(a); }
+};
+
+#ifndef G1_PRODUCTS
+#define G1_PRODUCTS InlineProducts
+#endif
+
+// The canonical product and square, inputs < p, outputs < p (the point
+// formulas use the redundant forms; kernel_probe.py times these).
 __device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
   fp_mul_lazy(r, a, b);
   fp_reduce_once(r.w);
@@ -279,19 +316,20 @@ __device__ __forceinline__ void store_jac(int64_t *x, int64_t *y, int64_t *z,
 // dbl-2009-l (curve.py _dbl_impl) in redundant form: coordinates in
 // [0, 2p) in and out.  The identity (z = 0, or p once redundant) stays
 // the identity: z3 = 2yz.
+template <class P = G1_PRODUCTS>
 __device__ __forceinline__ void g1_dbl_lazy(Jac &r, const Jac &p) {
   Fp a, b, c, d, e, f, t;
-  fp_sqr_lazy(a, p.x);
-  fp_sqr_lazy(b, p.y);
-  fp_sqr_lazy(c, b);
+  P::sqr(a, p.x);
+  P::sqr(b, p.y);
+  P::sqr(c, b);
   fp_add_mod<true>(t, p.x, b);
-  fp_sqr_lazy(d, t);
+  P::sqr(d, t);
   fp_sub_mod<true>(d, d, a);
   fp_sub_mod<true>(d, d, c);
   fp_add_mod<true>(d, d, d);           // d = 2((x + b)^2 - a - c)
   fp_add_mod<true>(e, a, a);
   fp_add_mod<true>(e, e, a);           // e = 3a
-  fp_sqr_lazy(f, e);
+  P::sqr(f, e);
   Jac o;
   fp_add_mod<true>(t, d, d);
   fp_sub_mod<true>(o.x, f, t);         // x3 = e^2 - 2d
@@ -299,121 +337,145 @@ __device__ __forceinline__ void g1_dbl_lazy(Jac &r, const Jac &p) {
   fp_add_mod<true>(c, c, c);
   fp_add_mod<true>(c, c, c);           // 8c
   fp_sub_mod<true>(t, d, o.x);
-  fp_mul_lazy(t, e, t);
+  P::mul(t, e, t);
   fp_sub_mod<true>(o.y, t, c);         // y3 = e(d - x3) - 8c
   fp_add_mod<true>(t, p.y, p.y);
-  fp_mul_lazy(o.z, t, p.z);            // z3 = 2yz
+  P::mul(o.z, t, p.z);                 // z3 = 2yz
   r = o;
+}
+
+// Each coordinate of a point in [0, 2p) to its canonical value.
+__device__ __forceinline__ void g1_reduce(Jac &p) {
+  fp_reduce_once(p.x.w);
+  fp_reduce_once(p.y.w);
+  fp_reduce_once(p.z.w);
 }
 
 // n doublings of p in place, in redundant form, then one canonical
 // reduction of each coordinate: the limbs of n canonical doublings.
 __device__ __forceinline__ void g1_dbl_n(Jac &p, int n) {
   for (int k = 0; k < n; k++) g1_dbl_lazy(p, p);
-  fp_reduce_once(p.x.w);
-  fp_reduce_once(p.y.w);
-  fp_reduce_once(p.z.w);
+  g1_reduce(p);
 }
 
 // The doubling branch of the additions: a separate call keeps the rarely
 // taken path out of the inlined hot loop.
 static __device__ __noinline__ void g1_dbl_branch(Jac &r, const Jac &p) {
-  r = p;
-  g1_dbl_n(r, 1);
+  g1_dbl_lazy(r, p);
 }
 
-// Complete Jacobian addition (add-2007-bl, curve.py _add_impl).  Returns 1
-// when the same-point lane took the doubling branch, else 0.
-__device__ __forceinline__ int g1_add(Jac &r, const Jac &p, const Jac &q) {
-  if (fp_is_zero(p.z)) {
+// Complete Jacobian addition (add-2007-bl, curve.py _add_impl) in
+// redundant form: coordinates in [0, 2p) in and out.  Returns 1 when the
+// same-point lane took the doubling branch, else 0.  r may alias p or q.
+template <class P = G1_PRODUCTS>
+__device__ __forceinline__ int g1_add_lazy(Jac &r, const Jac &p, const Jac &q) {
+  if (fp_is_zero_lazy(p.z)) {
     r = q;
     return 0;
   }
-  if (fp_is_zero(q.z)) {
+  if (fp_is_zero_lazy(q.z)) {
     r = p;
     return 0;
   }
   Fp z1z1, z2z2, u1, u2, s1, s2, h, i, j, rr, v, t;
-  fp_sqr(z1z1, p.z);
-  fp_sqr(z2z2, q.z);
-  fp_mul(u1, p.x, z2z2);
-  fp_mul(u2, q.x, z1z1);
-  fp_mul(s1, p.y, q.z);
-  fp_mul(s1, s1, z2z2);
-  fp_mul(s2, q.y, p.z);
-  fp_mul(s2, s2, z1z1);
-  fp_sub(h, u2, u1);
-  fp_sub(rr, s2, s1);
-  if (fp_is_zero(h) && fp_is_zero(rr)) {
+  P::sqr(z1z1, p.z);
+  P::sqr(z2z2, q.z);
+  P::mul(u1, p.x, z2z2);
+  P::mul(u2, q.x, z1z1);
+  P::mul(s1, p.y, q.z);
+  P::mul(s1, s1, z2z2);
+  P::mul(s2, q.y, p.z);
+  P::mul(s2, s2, z1z1);
+  fp_sub_mod<true>(h, u2, u1);
+  fp_sub_mod<true>(rr, s2, s1);
+  if (fp_is_zero_lazy(h) && fp_is_zero_lazy(rr)) {
     g1_dbl_branch(r, p);
     return 1;
   }
-  fp_add(t, h, h);
-  fp_sqr(i, t);
-  fp_mul(j, h, i);
-  fp_add(rr, rr, rr);
-  fp_mul(v, u1, i);
+  fp_add_mod<true>(t, h, h);
+  P::sqr(i, t);
+  P::mul(j, h, i);
+  fp_add_mod<true>(rr, rr, rr);
+  P::mul(v, u1, i);
   Jac o;
-  fp_sqr(t, rr);
-  fp_sub(t, t, j);
-  fp_add(o.x, v, v);
-  fp_sub(o.x, t, o.x);       // x3 = rr^2 - j - 2v
-  fp_mul(s1, s1, j);
-  fp_add(s1, s1, s1);
-  fp_sub(t, v, o.x);
-  fp_mul(t, rr, t);
-  fp_sub(o.y, t, s1);        // y3 = rr(v - x3) - 2 s1 j
-  fp_add(t, p.z, q.z);
-  fp_sqr(t, t);
-  fp_sub(t, t, z1z1);
-  fp_sub(t, t, z2z2);
-  fp_mul(o.z, t, h);         // z3 = ((z1 + z2)^2 - z1z1 - z2z2) h
+  P::sqr(t, rr);
+  fp_sub_mod<true>(t, t, j);
+  fp_add_mod<true>(o.x, v, v);
+  fp_sub_mod<true>(o.x, t, o.x);       // x3 = rr^2 - j - 2v
+  P::mul(s1, s1, j);
+  fp_add_mod<true>(s1, s1, s1);
+  fp_sub_mod<true>(t, v, o.x);
+  P::mul(t, rr, t);
+  fp_sub_mod<true>(o.y, t, s1);        // y3 = rr(v - x3) - 2 s1 j
+  fp_add_mod<true>(t, p.z, q.z);
+  P::sqr(t, t);
+  fp_sub_mod<true>(t, t, z1z1);
+  fp_sub_mod<true>(t, t, z2z2);
+  P::mul(o.z, t, h);                   // z3 = ((z1 + z2)^2 - z1z1 - z2z2) h
   r = o;
   return 0;
 }
 
 // Complete mixed addition p + (qx, qy) with q affine and finite
-// (madd-2007-bl, curve.py _madd_impl).  Returns 1 on the doubling branch.
-__device__ __forceinline__ int g1_madd(Jac &r, const Jac &p, const Fp &qx, const Fp &qy) {
-  if (fp_is_zero(p.z)) {
+// (madd-2007-bl, curve.py _madd_impl) in redundant form: coordinates in
+// [0, 2p) in and out.  Returns 1 on the doubling branch.  r may alias p.
+template <class P = G1_PRODUCTS>
+__device__ __forceinline__ int g1_madd_lazy(Jac &r, const Jac &p, const Fp &qx, const Fp &qy) {
+  if (fp_is_zero_lazy(p.z)) {
     r.x = qx;
     r.y = qy;
     fp_set_one(r.z);
     return 0;
   }
   Fp z1z1, u2, s2, h, hh, i, j, rr, v, t;
-  fp_sqr(z1z1, p.z);
-  fp_mul(u2, qx, z1z1);
-  fp_mul(s2, qy, p.z);
-  fp_mul(s2, s2, z1z1);
-  fp_sub(h, u2, p.x);
-  fp_sub(rr, s2, p.y);
-  if (fp_is_zero(h) && fp_is_zero(rr)) {
+  P::sqr(z1z1, p.z);
+  P::mul(u2, qx, z1z1);
+  P::mul(s2, qy, p.z);
+  P::mul(s2, s2, z1z1);
+  fp_sub_mod<true>(h, u2, p.x);
+  fp_sub_mod<true>(rr, s2, p.y);
+  if (fp_is_zero_lazy(h) && fp_is_zero_lazy(rr)) {
     g1_dbl_branch(r, p);
     return 1;
   }
-  fp_sqr(hh, h);
-  fp_add(i, hh, hh);
-  fp_add(i, i, i);
-  fp_mul(j, h, i);
-  fp_add(rr, rr, rr);
-  fp_mul(v, p.x, i);
+  P::sqr(hh, h);
+  fp_add_mod<true>(i, hh, hh);
+  fp_add_mod<true>(i, i, i);
+  P::mul(j, h, i);
+  fp_add_mod<true>(rr, rr, rr);
+  P::mul(v, p.x, i);
   Jac o;
-  fp_sqr(t, rr);
-  fp_sub(t, t, j);
-  fp_add(o.x, v, v);
-  fp_sub(o.x, t, o.x);       // x3 = rr^2 - j - 2v
-  fp_mul(u2, p.y, j);
-  fp_add(u2, u2, u2);
-  fp_sub(t, v, o.x);
-  fp_mul(t, rr, t);
-  fp_sub(o.y, t, u2);        // y3 = rr(v - x3) - 2 y1 j
-  fp_add(t, p.z, h);
-  fp_sqr(t, t);
-  fp_sub(t, t, z1z1);
-  fp_sub(o.z, t, hh);        // z3 = (z1 + h)^2 - z1z1 - hh
+  P::sqr(t, rr);
+  fp_sub_mod<true>(t, t, j);
+  fp_add_mod<true>(o.x, v, v);
+  fp_sub_mod<true>(o.x, t, o.x);       // x3 = rr^2 - j - 2v
+  P::mul(u2, p.y, j);
+  fp_add_mod<true>(u2, u2, u2);
+  fp_sub_mod<true>(t, v, o.x);
+  P::mul(t, rr, t);
+  fp_sub_mod<true>(o.y, t, u2);        // y3 = rr(v - x3) - 2 y1 j
+  fp_add_mod<true>(t, p.z, h);
+  P::sqr(t, t);
+  fp_sub_mod<true>(t, t, z1z1);
+  fp_sub_mod<true>(o.z, t, hh);        // z3 = (z1 + h)^2 - z1z1 - hh
   r = o;
   return 0;
+}
+
+// The canonical additions: canonical coordinates in (they lie in [0, 2p))
+// and out, the redundant form in between.
+template <class P = G1_PRODUCTS>
+__device__ __forceinline__ int g1_add(Jac &r, const Jac &p, const Jac &q) {
+  int doubled = g1_add_lazy<P>(r, p, q);
+  g1_reduce(r);
+  return doubled;
+}
+
+template <class P = G1_PRODUCTS>
+__device__ __forceinline__ int g1_madd(Jac &r, const Jac &p, const Fp &qx, const Fp &qy) {
+  int doubled = g1_madd_lazy<P>(r, p, qx, qy);
+  g1_reduce(r);
+  return doubled;
 }
 
 static inline unsigned int blocks_for(int64_t n, int threads) {

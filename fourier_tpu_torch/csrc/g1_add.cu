@@ -1,21 +1,31 @@
 // K2 g1_add: batched complete Jacobian addition, one thread per lane.
 //
 // Replaces fourier_tpu/ops/pallas_curve.py:_add_inc_kernel (with the
-// lax.cond rerun of curve.add_fast) and serves every halving step of the
-// bucket-reduction trees.  The doubling branch is taken per thread where
-// the TPU flagged the lane and reran the whole batch; such lanes are
-// counted into `collisions`.
+// lax.cond rerun of curve.add_fast) and _add_kernel (pallas_curve.add).
+// The port launches it for msm_naive's halving tree, one launch a level
+// (1 to 32 lanes); the bucket-reduction trees run in g1_tree.cu.  The
+// doubling branch is taken per thread where the TPU flagged the lane and
+// reran the whole batch; such lanes are counted into `collisions`.
 //
-// Bound: integer multiply throughput: ~16 Fp Montgomery products per lane
-// against 6 x 24 int64 limbs read and 3 x 24 written.
+// Each lane runs the redundant complete addition of g1.cuh (coordinates
+// in [0, 2p), no conditional subtraction inside a product, adds and subs
+// modulo 2p) and stores canonical limbs once.
 //
-// Left for later: the int64 16-bit-limb layout moves 4x the bytes of a
-// packed one, and narrow tree levels leave most of the card idle (a
-// whole tree in one launch would keep it busy).
+// Bound: operations, ~16 Fp Montgomery products per finite lane against 6
+// coordinates read and 3 written.  At msm_naive's tree levels the work is
+// one addition's latency, so its floor is that latency.
+//
+// Occupancy: ptxas's registers and spills and the block shapes measured
+// are in PERF.md.
 
 #include "g1.cuh"
 
-__global__ void __launch_bounds__(128)
+#define ADD_THREADS 128
+#ifndef ADD_PRODUCTS
+#define ADD_PRODUCTS InlineProducts
+#endif
+
+__global__ void __launch_bounds__(ADD_THREADS)
 g1_add_kernel(const int64_t *__restrict__ x1, const int64_t *__restrict__ y1,
               const int64_t *__restrict__ z1, const int64_t *__restrict__ x2,
               const int64_t *__restrict__ y2, const int64_t *__restrict__ z2,
@@ -26,7 +36,7 @@ g1_add_kernel(const int64_t *__restrict__ x1, const int64_t *__restrict__ y1,
   Jac p, q, r;
   load_jac(p, x1, y1, z1, n, i);
   load_jac(q, x2, y2, z2, n, i);
-  if (g1_add(r, p, q)) atomicAdd(collisions, 1ull);
+  if (g1_add<ADD_PRODUCTS>(r, p, q)) atomicAdd(collisions, 1ull);
   store_jac(out_x, out_y, out_z, n, i, r);
 }
 
@@ -34,7 +44,7 @@ extern "C" int fk_g1_add(const void *x1, const void *y1, const void *z1, const v
                          const void *y2, const void *z2, void *out_x, void *out_y,
                          void *out_z, int64_t n, void *collisions, void *stream) {
   if (n > 0) {
-    g1_add_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+    g1_add_kernel<<<blocks_for(n, ADD_THREADS), ADD_THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t *)x1, (const int64_t *)y1, (const int64_t *)z1,
         (const int64_t *)x2, (const int64_t *)y2, (const int64_t *)z2,
         (int64_t *)out_x, (int64_t *)out_y, (int64_t *)out_z, n,

@@ -9,6 +9,7 @@ plain PyTorch twins.
 | g1_dbl         | csrc/g1_dbl.cu     | ops/pallas_curve.py:_dbl_kernel                            |
 | horner_2k      | csrc/horner_2k.cu  | ops/pallas_curve.py:horner_2k, and ops/msm.py:_horner_2k's fold |
 | g1_madd        | csrc/g1_madd.cu    | ops/pallas_curve.py:_madd_kernel                           |
+| g1_madd_ladder | csrc/g1_madd.cu    | ops/pallas_curve.py:_madd_kernel, the steps of ops/msm.py:msm_naive |
 
 ops/pallas_curve.py:_add_kernel (the complete Jacobian add behind
 pallas_curve.add) computes K2's function on every lane and maps to K2.
@@ -18,8 +19,11 @@ independent trees; K2 serves msm_naive's tree.  accumulate cuts each run
 into pieces of at most PIECE rows; its plain twin takes the piece size
 (None: whole runs, the reference's association).  horner_2k also takes in
 the fold of the residual lanes after the reference's Horner chain, and
-returns one point; g1_dbl and horner_2k's doublings run on redundant
-coordinates in [0, 2p) and store canonical limbs.
+returns one point.  g1_madd_ladder is K5's second entry: msm_naive's whole
+double-and-add (a doubling and a mixed add a scalar bit) in one launch.
+Every point formula of the kernels (csrc/g1.cuh) runs on redundant
+coordinates in [0, 2p) and stores canonical limbs; g1_dbl_redundant,
+g1_add_redundant and g1_madd_redundant model their values in Python ints.
 
 The kernels are built with nvcc for sm_90a at first use, one nvcc per
 source, all started together, then linked into one library in
@@ -28,7 +32,8 @@ and flags; the library is bound through a plain C interface with ctypes.
 A wrapper given CUDA tensors launches its kernel on the current stream or
 raises; given CPU tensors it runs the plain twin.  Every launch adds one to
 ``COUNTERS.launches[name]``; lanes that took the doubling branch of a
-complete addition are summed on the device into ``COUNTERS.collisions``.
+complete addition are summed on the device into ``COUNTERS.collisions``
+(the ladder's steps under g1_madd).
 """
 
 from __future__ import annotations
@@ -42,13 +47,14 @@ import subprocess
 
 import torch
 
-from ..constants import FP_LIMBS
+from ..constants import FP_LIMBS, FR_LIMBS, LIMB_BITS
 
 from . import curve as cv
 from .curve import G1Aff, G1Jac
 from .field import FP
 
-KERNELS = ("accumulate", "g1_add", "g1_tree_reduce", "g1_dbl", "horner_2k", "g1_madd")
+KERNELS = ("accumulate", "g1_add", "g1_tree_reduce", "g1_dbl", "horner_2k", "g1_madd",
+           "g1_madd_ladder")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -162,8 +168,9 @@ def build() -> ctypes.CDLL:
     lib.fk_g1_dbl.argtypes = [vp] * 6 + [i64, i32, vp]
     lib.fk_horner_2k.argtypes = [vp, vp, vp, i64, i64, i32, i32] + [vp] * 6
     lib.fk_g1_madd.argtypes = [vp] * 9 + [i64, vp, vp]
+    lib.fk_g1_madd_ladder.argtypes = [vp] * 4 + [i32] + [vp] * 3 + [i64, vp, vp]
     for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_tree_reduce, lib.fk_g1_dbl,
-               lib.fk_horner_2k, lib.fk_g1_madd):
+               lib.fk_horner_2k, lib.fk_g1_madd, lib.fk_g1_madd_ladder):
         fn.restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
@@ -474,6 +481,56 @@ def g1_madd(p: G1Jac, q: G1Aff) -> G1Jac:
     return G1Jac(*(c.reshape(shape) for c in out))
 
 
+def g1_madd_ladder_plain(points: G1Aff, scalars, nbits: int) -> G1Jac:
+    """Plain twin of K5's ladder: the stepwise canonical chain, from the
+    identity, for bit i from nbits - 1 down to 0, one doubling (none on
+    the first bit) and one complete mixed add of the point where bit i of
+    its scalar is set."""
+    acc = cv.jac_identity(points.x.shape[1:], points.x.device)
+    for k, i in enumerate(reversed(range(nbits))):
+        if k:
+            acc = g1_dbl_plain(acc)
+        bit = ((scalars[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1).bool()
+        acc = g1_madd_plain(acc, G1Aff(points.x, points.y, points.inf | ~bit))
+    return acc
+
+
+def g1_madd_ladder(points: G1Aff, scalars, nbits: int) -> G1Jac:
+    """K5's ladder: scalars[i] * points[i] for every lane, by double-and-add
+    over the low nbits bits, in one launch (limbs equal to
+    g1_madd_ladder_plain's).  points: [24, *batch] affine with a bool
+    infinity mask; scalars: int64 [FR_LIMBS, *batch], 16 bits a limb."""
+    shape = points.x.shape
+    if scalars.dtype != torch.int64 or scalars.shape != (FR_LIMBS, *shape[1:]):
+        raise ValueError(f"scalars must be int64 [{FR_LIMBS}, *{tuple(shape[1:])}], got "
+                         f"{scalars.dtype} {tuple(scalars.shape)}")
+    if points.inf.dtype != torch.bool or points.inf.shape != shape[1:]:
+        raise ValueError("points.inf must be a bool mask of the batch shape")
+    if not 0 <= nbits <= FR_LIMBS * LIMB_BITS:
+        raise ValueError(f"nbits = {nbits} is not in [0, {FR_LIMBS * LIMB_BITS}]")
+    xy = _coords(points[:2])
+    inf = points.inf.reshape(-1).contiguous()
+    sc = scalars.reshape(FR_LIMBS, -1).contiguous()
+    dev = xy[0].device
+    if inf.device != dev or sc.device != dev:
+        raise ValueError("operands on different devices")
+    if dev.type == "cpu":
+        out = g1_madd_ladder_plain(G1Aff(*xy, inf), sc, nbits)
+    elif dev.type == "cuda":
+        lib = build()
+        n = xy[0].shape[1]
+        out = _empty_like_coords(n, dev)
+        rc = lib.fk_g1_madd_ladder(*map(_ptr, xy), _ptr(inf), _ptr(sc), nbits,
+                                   *map(_ptr, out), n,
+                                   _ptr(COUNTERS.collision_buffer("g1_madd", dev)),
+                                   _stream(dev))
+        COUNTERS.launches["g1_madd_ladder"] += 1
+        _check(lib, "g1_madd_ladder", rc)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return G1Jac(*(c.reshape(shape) for c in out))
+
+
 # -- K3 g1_dbl ----------------------------------------------------------------------
 
 def g1_dbl_plain(p: G1Jac, repeat: int = 1) -> G1Jac:
@@ -482,13 +539,12 @@ def g1_dbl_plain(p: G1Jac, repeat: int = 1) -> G1Jac:
     return p
 
 
-def g1_dbl_redundant(x: int, y: int, z: int) -> list:
-    """One doubling as K3 runs it (csrc/g1.cuh g1_dbl_lazy), on Montgomery
-    values as Python ints in [0, 2p): every value it holds, in order, the
-    last three being the x3, y3, z3 it carries to the next doubling.  A
-    product or square is (a b + M p) / 2^384 with M = -a b / p mod 2^384,
-    the value of the word-serial reduction; adds and subs reduce modulo
-    2p."""
+@functools.cache
+def _redundant_ops():
+    """(mul, add, sub) of csrc/g1.cuh's redundant form on Montgomery values
+    as Python ints in [0, 2p): a product or square is (a b + M p) / 2^384
+    with M = -a b / p mod 2^384, the value of the word-serial reduction;
+    adds and subs reduce modulo 2p."""
     p, p2, r = FP.modulus, 2 * FP.modulus, 1 << 384
     neg_pinv = -pow(p, -1, r) % r
 
@@ -502,6 +558,14 @@ def g1_dbl_redundant(x: int, y: int, z: int) -> list:
     def sub(a, b):
         return a - b + p2 if a < b else a - b
 
+    return mul, add, sub
+
+
+def g1_dbl_redundant(x: int, y: int, z: int) -> list:
+    """One doubling as the kernels run it (csrc/g1.cuh g1_dbl_lazy), on
+    Montgomery values as Python ints in [0, 2p): every value it holds, in
+    order, the last three being the x3, y3, z3 it carries on."""
+    mul, add, sub = _redundant_ops()
     a, b = mul(x, x), mul(y, y)
     c = mul(b, b)
     t = add(x, b)
@@ -523,6 +587,133 @@ def g1_dbl_redundant(x: int, y: int, z: int) -> list:
     y2 = add(y, y)
     z3 = mul(y2, z)
     return [a, b, c, t, s, d1, d0, d, e2, e, f, d2, c2, c4, c8, u, v, y2, x3, y3, z3]
+
+
+def g1_add_redundant(p: tuple, q: tuple) -> list:
+    """One complete addition p + q of (x, y, z) Montgomery ints in [0, 2p)
+    as the kernels run it (csrc/g1.cuh g1_add_lazy): every value it holds,
+    in order, the last three being the x3, y3, z3 it returns (an identity
+    operand returns the other's coordinates; the same point, the
+    doubling's)."""
+    mul, add, sub = _redundant_ops()
+    m = FP.modulus
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    if z1 % m == 0:
+        return list(q)
+    if z2 % m == 0:
+        return list(p)
+    z1z1, z2z2 = mul(z1, z1), mul(z2, z2)
+    u1, u2 = mul(x1, z2z2), mul(x2, z1z1)
+    s1a = mul(y1, z2)
+    s1 = mul(s1a, z2z2)
+    s2a = mul(y2, z1)
+    s2 = mul(s2a, z1z1)
+    h, r0 = sub(u2, u1), sub(s2, s1)
+    held = [z1z1, z2z2, u1, u2, s1a, s1, s2a, s2, h, r0]
+    if h % m == 0 and r0 % m == 0:
+        return held + g1_dbl_redundant(*p)
+    h2 = add(h, h)
+    i = mul(h2, h2)
+    j = mul(h, i)
+    rr = add(r0, r0)
+    v = mul(u1, i)
+    t0 = mul(rr, rr)
+    t1 = sub(t0, j)
+    v2 = add(v, v)
+    x3 = sub(t1, v2)
+    s1j = mul(s1, j)
+    s1j2 = add(s1j, s1j)
+    w = sub(v, x3)
+    t2 = mul(rr, w)
+    y3 = sub(t2, s1j2)
+    zs = add(z1, z2)
+    zz = mul(zs, zs)
+    t3 = sub(zz, z1z1)
+    t4 = sub(t3, z2z2)
+    z3 = mul(t4, h)
+    return held + [h2, i, j, rr, v, t0, t1, v2, s1j, s1j2, w, t2, zs, zz, t3, t4, x3, y3, z3]
+
+
+def g1_madd_redundant(p: tuple, qx: int, qy: int) -> list:
+    """One complete mixed addition p + (qx, qy), q finite, of Montgomery
+    ints in [0, 2p) as the kernels run it (csrc/g1.cuh g1_madd_lazy): every
+    value it holds, in order, the last three being the x3, y3, z3 it
+    returns."""
+    mul, add, sub = _redundant_ops()
+    m = FP.modulus
+    x1, y1, z1 = p
+    if z1 % m == 0:
+        return [qx, qy, FP.mont_r]
+    z1z1 = mul(z1, z1)
+    u2 = mul(qx, z1z1)
+    s2a = mul(qy, z1)
+    s2 = mul(s2a, z1z1)
+    h, r0 = sub(u2, x1), sub(s2, y1)
+    held = [z1z1, u2, s2a, s2, h, r0]
+    if h % m == 0 and r0 % m == 0:
+        return held + g1_dbl_redundant(*p)
+    hh = mul(h, h)
+    i2 = add(hh, hh)
+    i = add(i2, i2)
+    j = mul(h, i)
+    rr = add(r0, r0)
+    v = mul(x1, i)
+    t0 = mul(rr, rr)
+    t1 = sub(t0, j)
+    v2 = add(v, v)
+    x3 = sub(t1, v2)
+    yj = mul(y1, j)
+    yj2 = add(yj, yj)
+    w = sub(v, x3)
+    t2 = mul(rr, w)
+    y3 = sub(t2, yj2)
+    zh = add(z1, h)
+    zz = mul(zh, zh)
+    t3 = sub(zz, z1z1)
+    z3 = sub(t3, hh)
+    return held + [hh, i2, i, j, rr, v, t0, t1, v2, yj, yj2, w, t2, zh, zz, t3, x3, y3, z3]
+
+
+def affine_ints(pt: tuple) -> tuple:
+    """The affine Montgomery (x, y) of a finite Jacobian Montgomery (x, y,
+    z) of ints: x R^2 / z^2 and y R^3 / z^3 mod p."""
+    m, r = FP.modulus, FP.mont_r
+    x, y, z = pt
+    zi = pow(z, -1, m)
+    return x * r * r * zi * zi % m, y * r ** 3 * zi ** 3 % m
+
+
+def addition_edge_lanes(rng, mixed: bool, near: int = 8) -> list:
+    """(P, Q) pairs of Montgomery ints that test the redundant additions
+    (Q an affine (x, y) when mixed): identities on either side and both
+    (z = 0, x and y zero or not), P = Q (the same coordinates, and the
+    same point scaled), P = -Q, coordinates 0, 1 and p - 1, and the `near`
+    pairs of 3000 random ones whose addition returns, or holds, the values
+    closest to 2p."""
+    m = FP.modulus
+
+    def rnd():
+        return tuple(rng.randrange(m) for _ in range(3))
+
+    p1, p2, lam = rnd(), rnd(), rng.randrange(2, m)
+    scaled = (p2[0] * lam ** 2 % m, p2[1] * lam ** 3 % m, p2[2] * lam % m)
+    neg = (p1[0], m - p1[1], p1[2])
+    top = (m - 1, m - 1, m - 1)
+    pairs = [((0, 0, 0), rnd()), (rnd()[:2] + (0,), rnd()), (rnd(), (0, 0, 0)),
+             (rnd(), rnd()[:2] + (0,)), ((0, 0, 0), (0, 0, 0)), (p1, p1), (p2, scaled),
+             (p1, neg), ((1, 1, 1), top), ((0, 1, m - 1), (m - 1, 0, 1)), (top, top),
+             ((0, 0, 1), (1, 1, 1))]
+    if mixed:
+        # q finite: its affine form; p at infinity also meets q = (0, 0)
+        pairs = [(a, affine_ints(b) if b[2] else b[:2]) for a, b in pairs if b[2] or a[2] == 0]
+        cands = [(rnd(), rnd()[:2]) for _ in range(3000)]
+        vals = [g1_madd_redundant(a, *b) for a, b in cands]
+    else:
+        cands = [(rnd(), rnd()) for _ in range(3000)]
+        vals = [g1_add_redundant(a, b) for a, b in cands]
+    returned = sorted(range(len(cands)), key=lambda i: 2 * m - max(vals[i][-3:]))
+    held = sorted(range(len(cands)), key=lambda i: 2 * m - max(vals[i]))
+    return pairs + [cands[i] for i in returned[:near - near // 2] + held[:near // 2]]
 
 
 def g1_dbl(p: G1Jac, repeat: int = 1) -> G1Jac:

@@ -83,15 +83,10 @@ def _bit_length(scalars) -> int:
 
 def msm_naive(points: G1Aff, scalars) -> G1Jac:
     """The MSM of tiny n: every lane runs double-and-add on its own point
-    from the scalars' top bit down (K3 doubles, K5 mixed-adds the affine
-    point where the bit is set), then one tree sum, a K2 launch a level."""
-    n = points.x.shape[-1]
-    acc = cv.jac_identity((n,), points.x.device)
-    for k, i in enumerate(reversed(range(_bit_length(scalars)))):
-        if k:
-            acc = cv.dbl_fast(acc)
-        bit = ((scalars[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1).bool()
-        acc = cv.madd_fast(acc, G1Aff(points.x, points.y, points.inf | ~bit))
+    from the scalars' top bit down (one K5 ladder launch: a doubling and a
+    mixed add of the affine point where the bit is set, a bit), then one
+    tree sum, a K2 launch a level."""
+    acc = kernels.g1_madd_ladder(points, scalars, _bit_length(scalars))
     out = cv.halving_tree(acc, -1, 1, add=cv.add_fast)
     return G1Jac(*(c[..., 0] for c in out))
 

@@ -7,7 +7,10 @@ JAX side runs as its own tests run it: the jnp path, and for each point
 kernel one case through the Pallas interpreter (TILE patched to 128, two
 grid steps with padding): the incomplete kernels behind the fast paths,
 and the complete pallas_curve.madd/add (_madd_kernel, _add_kernel) against
-K5's twin and K2.  Comparisons are exact.  The CUDA kernels against their
+K5's twin and K2.  The redundant forms of the kernels' doubling and
+additions (Python-int models of csrc/g1.cuh) stay in [0, 2p) and
+canonicalise to the plain twins' limbs, and K5's ladder model equals its
+twin.  Comparisons are exact.  The CUDA kernels against their
 plain twins on a card are in test_torch_kernels.py.
 """
 
@@ -304,6 +307,76 @@ def test_redundant_doubling_matches_jax_dbl_n(repeat):
     _same(jp, got)
     for k in range(3):
         assert vec_to_ints(got[k].numpy()) == [s[k] for s in canon]
+
+
+@pytest.mark.parametrize("op,repeat", [("add", 1), ("add", 3), ("madd", 1), ("madd", 3)])
+def test_redundant_additions_match_twins(op, repeat):
+    """The complete additions in their redundant form (kernels.
+    g1_add_redundant, g1_madd_redundant: the values csrc/g1.cuh holds)
+    stay in [0, 2p) and, made canonical, give the limbs of K2's and K5's
+    plain twins (held against the reference limb for limb above), on the
+    edge lanes of kernels.addition_edge_lanes (identities, P = Q, P = -Q,
+    0, 1, p - 1, values near 2p); repeat > 1 adds Q again to the redundant sum,
+    so the redundant inputs of a chain (the ladder's) are covered too."""
+    p = JFP.modulus
+    pairs = kernels.addition_edge_lanes(random.Random(0xADD + repeat), op == "madd")
+    state = [a for a, _ in pairs]
+    for _ in range(repeat):
+        if op == "madd":
+            held = [kernels.g1_madd_redundant(a, *b) for a, (_, b) in zip(state, pairs)]
+        else:
+            held = [kernels.g1_add_redundant(a, b) for a, (_, b) in zip(state, pairs)]
+        assert all(0 <= v < 2 * p for vs in held for v in vs)
+        state = [tuple(vs[-3:]) for vs in held]
+
+    def limbs(vals):
+        return torch.as_tensor(ints_to_vec(list(vals), FP_LIMBS).astype(np.int64))
+
+    twin = tcv.G1Jac(*(limbs(a[k] for a, _ in pairs) for k in range(3)))
+    for _ in range(repeat):
+        if op == "madd":
+            q = tcv.G1Aff(limbs(b[0] for _, b in pairs), limbs(b[1] for _, b in pairs),
+                          torch.zeros(len(pairs), dtype=torch.bool))
+            twin = kernels.g1_madd_plain(twin, q)
+        else:
+            twin = kernels.g1_add_plain(twin, tcv.G1Jac(*(limbs(b[k] for _, b in pairs)
+                                                          for k in range(3))))
+    for k in range(3):
+        assert vec_to_ints(twin[k].numpy()) == [s[k] % p for s in state]
+
+
+@pytest.mark.parametrize("nbits", [0, 1, 255])
+def test_redundant_ladder_matches_its_twin(nbits):
+    """K5's ladder modelled in its redundant form (g1_dbl_redundant and
+    g1_madd_redundant a bit, canonical once at the end) stays in [0, 2p)
+    and equals its plain twin, the stepwise canonical chain, limb for limb;
+    on 8 curve points with one at infinity and scalars 0, 1, r - 1, r + 2
+    (the sum meets the point: the doubling branch) and random ones."""
+    p = JFP.modulus
+    rng = random.Random(0x1ADD)
+    pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(8)]
+    pts[5] = None
+    sc = [0, 1, R - 1, R + 2] + [rng.randrange(R) for _ in range(4)]
+    aff = tcv.affine_from_ints(pts)
+    xs, ys = (vec_to_ints(c.numpy()) for c in aff[:2])
+    out = []
+    for x, y, pt, s in zip(xs, ys, pts, sc):
+        acc = (0, 0, 0)
+        for k, b in enumerate(reversed(range(nbits))):
+            if k:
+                held = kernels.g1_dbl_redundant(*acc)
+                assert all(0 <= v < 2 * p for v in held)
+                acc = tuple(held[-3:])
+            if pt is not None and (s >> b) & 1:
+                held = kernels.g1_madd_redundant(acc, x, y)
+                assert all(0 <= v < 2 * p for v in held)
+                acc = tuple(held[-3:])
+        out.append([v % p for v in acc])
+    tsc = torch.as_tensor(ints_to_vec(sc, 16).astype(np.int64))
+    got = kernels.g1_madd_ladder(aff, tsc, nbits)
+    assert [list(c) for c in zip(*(vec_to_ints(g.numpy()) for g in got))] == out
+    assert tcv.jac_to_int_points(got) == [
+        g1_mul(pt, s % (1 << nbits)) if pt is not None else None for pt, s in zip(pts, sc)]
 
 
 def test_affine_conversions_match_jax(lanes):

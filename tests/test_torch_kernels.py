@@ -11,13 +11,16 @@ pair, identities on either side and both) goes through each point kernel,
 K5 on it again with q affine (its plain twin, refimpl and the doubling
 count), a BGMW MSM with an infinity row, a zero scalar and a duplicated
 point with an equal scalar through K1, K2 and K4, and the tableless MSMs
-(msm through K1, the tree kernel and K4; msm_naive through K3, K5, K2),
+(msm through K1, the tree kernel and K4; msm_naive through K5's ladder
+and K2),
 K1 on runs that span several pieces, the tree kernel on groups whose
 halves meet the same point, its inverse or an identity, at widths below
 and past the lanes a block keeps, K3 on coordinates 0, 1, p - 1,
-identities and lanes whose redundant values come near 2p, and K4 at the
-main path's shapes and on all-identity terms, one finite lane and equal
-terms.  Comparisons are exact.
+identities and lanes whose redundant values come near 2p, K2 and K5 on
+such lanes too (identities, P = Q, P = -Q), K5's ladder at 8 and 64
+lanes and 0, 1 and 255 bits, and K4 at the main path's shapes and on
+all-identity terms, one finite lane and equal terms.  Comparisons are
+exact.
 """
 
 import random
@@ -235,6 +238,75 @@ def test_g1_dbl_edge_lanes_match_plain_twin(cuda_device, repeat):
     got = kernels.g1_dbl(_to(tp, cuda_device), repeat)
     for a, b in zip(got, kernels.g1_dbl_plain(tp, repeat)):
         assert torch.equal(a.cpu(), b)
+
+
+def _limbs(vals):
+    return torch.as_tensor(ints_to_vec(list(vals), 24).astype("int64"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "madd"])
+def test_additions_on_edge_lanes_match_twins(cuda_device, op):
+    """K2 and K5 (redundant complete additions, canonical at the store)
+    against their canonical twins limb for limb on the edge lanes of
+    kernels.addition_edge_lanes, with the same-point lanes counted; then on the 160-lane
+    curve plan against refimpl, with its doubling lanes counted."""
+    pairs = kernels.addition_edge_lanes(random.Random(0xADD), op == "madd")
+    tp = tcv.G1Jac(*(_limbs(a[k] for a, _ in pairs) for k in range(3)))
+    if op == "madd":
+        tq = tcv.G1Aff(_limbs(b[0] for _, b in pairs), _limbs(b[1] for _, b in pairs),
+                       torch.zeros(len(pairs), dtype=torch.bool))
+        same = sum(1 for a, b in pairs if a[2] and kernels.affine_ints(a) == b)
+        run, plain = kernels.g1_madd, kernels.g1_madd_plain
+    else:
+        tq = tcv.G1Jac(*(_limbs(b[k] for _, b in pairs) for k in range(3)))
+        same = sum(1 for a, b in pairs
+                   if a[2] and b[2] and kernels.affine_ints(a) == kernels.affine_ints(b))
+        run, plain = kernels.g1_add, kernels.g1_add_plain
+    name = "g1_" + op
+    before = kernels.COUNTERS.collisions()[name]
+    got = run(_to(tp, cuda_device), _to(tq, cuda_device))
+    for a, b in zip(got, plain(tp, tq)):
+        assert torch.equal(a.cpu(), b)
+    assert kernels.COUNTERS.collisions()[name] - before == same >= 2
+
+    ps, qs = _lanes()
+    tp = tcv.from_affine(tcv.affine_from_ints(ps))
+    tq = tcv.affine_from_ints(qs)
+    if op == "add":
+        tq = tcv.from_affine(tq)
+    before = kernels.COUNTERS.collisions()[name]
+    got = run(_to(tp, cuda_device), _to(tq, cuda_device))
+    for a, b in zip(got, plain(tp, tq)):
+        assert torch.equal(a.cpu(), b)
+    assert tcv.jac_to_int_points(got) == [g1_add(a, b) for a, b in zip(ps, qs)]
+    assert kernels.COUNTERS.collisions()[name] - before == sum(
+        1 for a, b in zip(ps, qs) if a is not None and a == b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("nbits", [0, 1, 255])
+def test_ladder_on_card_matches_twin(cuda_device, n, nbits):
+    """K5's ladder (msm_naive's double-and-add in one launch) against its
+    plain twin, the stepwise canonical chain, limb for limb, and against
+    refimpl: curve points with one at infinity, scalars 0, 1, r - 1, r + 2
+    (the sum meets the point before the last bit: the doubling branch,
+    counted) and random ones."""
+    rng = random.Random(n * 1000 + nbits)
+    pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(n)]
+    pts[5] = None
+    sc = [0, 1, R - 1, R + 2, R + 2] + [rng.randrange(R) for _ in range(n - 5)]
+    aff = tcv.affine_from_ints(pts)
+    tsc = torch.as_tensor(ints_to_vec(sc, FR_LIMBS).astype("int64"))
+    before = kernels.COUNTERS.collisions()["g1_madd"]
+    got = kernels.g1_madd_ladder(_to(aff, cuda_device), tsc.to(cuda_device), nbits)
+    for a, b in zip(got, kernels.g1_madd_ladder_plain(aff, tsc, nbits)):
+        assert torch.equal(a.cpu(), b)
+    mask = (1 << nbits) - 1
+    assert tcv.jac_to_int_points(got) == [g1_mul(pt, s & mask) if pt is not None else None
+                                          for pt, s in zip(pts, sc)]
+    assert kernels.COUNTERS.collisions()["g1_madd"] - before == (2 if nbits == 255 else 0)
 
 
 def _rand_coords(n, gen):

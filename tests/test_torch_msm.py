@@ -10,9 +10,10 @@ final point is held against refimpl and the reference's msm_naive (the
 reduction half under the interpreter costs minutes on a CPU).  n = 32 at
 c = 7 (signed digits) and c = 8 (unsigned), with an infinity row, a zero
 scalar, a duplicated point with an equal scalar, and all-equal scalars.
-The tableless msm (n = 65, random and all-equal scalars) and msm_naive (n = 8) give the points
-of the reference's msm (its CPU jnp path) and msm_naive.  Comparisons are
-exact.
+The tableless msm (n = 65, random and all-equal scalars) and msm_naive (n = 8,
+with scalars 0, 1 and r - 1 and a point at infinity; K5's ladder on the CPU
+runs its twin) give the points of the reference's msm (its CPU jnp path) and
+msm_naive.  Comparisons are exact.
 """
 
 import random
@@ -166,7 +167,7 @@ def test_msm_naive_matches_jax():
     rng = random.Random(8)
     pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(8)]
     pts[2] = None
-    sc = [0, 1] + [rng.randrange(R) for _ in range(6)]
+    sc = [0, 1, R - 1] + [rng.randrange(R) for _ in range(5)]
     jsc, tsc = _scalar_pair(sc)
     got = _point(tmsm.msm_naive(tcv.affine_from_ints(pts), tsc))
     assert got == _point(jmsm.msm_naive(jcv.affine_from_ints(pts), jsc)) == g1_msm(pts, sc)
