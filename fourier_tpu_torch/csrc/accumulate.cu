@@ -44,8 +44,10 @@
 
 #define ACC_THREADS 128
 // Blocks of ACC_THREADS an SM must fit: a cap on pass 1's registers per
-// thread, so more warps hide the latency of the product chains.
-#define ACC_MIN_BLOCKS 3
+// thread, so more warps hide the latency of the product chains.  With the
+// out-of-line products of g1.cuh pass 1 needs 238 registers; a cap of 3
+// blocks (168) spills and ran slower (PERF.md).
+#define ACC_MIN_BLOCKS 2
 
 // A Jacobian point as 36 words, word j of item i at j * stride + i.
 __device__ __forceinline__ void store_packed(uint32_t *dst, int64_t stride, int64_t i,

@@ -1,7 +1,8 @@
 // A microbenchmark of the Fp Montgomery product and square of the G1
 // kernels (fp_mul, fp_sqr of g1.cuh): one per thread (for its SASS) and a
 // dependent chain per thread (for the rate over many lanes and the
-// latency in one warp); and dependent chains of the complete additions
+// latency in one warp), also in redundant form; and dependent chains of
+// the complete additions
 // (g1_add, g1_madd of g1.cuh), for an addition's latency in one warp.
 // kernel_probe.py builds it and counts its SASS.  Values are 12 x 32-bit
 // words, word-major: word j of lane i at j * n + i; a point is its x, y
@@ -60,6 +61,29 @@ __global__ void __launch_bounds__(128) bench_chain(uint32_t *x, const uint32_t *
   bench_load(m, b, n, i);
   for (int k = 0; k < iters; k++) fp_mul(acc, acc, m);
   bench_store(x, n, i, acc);
+}
+
+// The same chains in redundant form (fp_mul_lazy, fp_sqr_lazy: values
+// stay below 2p), the products of the point formulas.
+__global__ void __launch_bounds__(128) bench_lazy_chain(uint32_t *x, const uint32_t *b,
+                                                        int iters, int64_t n, int square) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp acc, m;
+  bench_load(acc, x, n, i);
+  bench_load(m, b, n, i);
+  if (square)
+    for (int k = 0; k < iters; k++) fp_sqr_lazy(acc, acc);
+  else
+    for (int k = 0; k < iters; k++) fp_mul_lazy(acc, acc, m);
+  bench_store(x, n, i, acc);
+}
+
+extern "C" int fk_bench_lazy_chain(void *x, const void *b, int iters, int64_t n, int square,
+                                   void *stream) {
+  bench_lazy_chain<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+      (uint32_t *)x, (const uint32_t *)b, iters, n, square);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ void bench_load_jac(Jac &p, const uint32_t *src, int64_t n,

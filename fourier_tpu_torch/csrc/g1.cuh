@@ -225,47 +225,27 @@ __device__ __forceinline__ void fp_sqr_lazy(Fp &r, const Fp &a) {
   for (int j = 0; j < FP_WORDS; j++) r.w[j] = t[FP_WORDS + j];
 }
 
-// How a point formula takes its products.  Inline: each product and
-// square expanded in place, so that the scheduler overlaps a formula's
-// independent ones; the form for kernels that keep many warps an SM busy.
-struct InlineProducts {
-  static __device__ __forceinline__ void mul(Fp &r, const Fp &a, const Fp &b) {
-    fp_mul_lazy(r, a, b);
-  }
-  static __device__ __forceinline__ void sqr(Fp &r, const Fp &a) { fp_sqr_lazy(r, a); }
-};
-
-// Called: one out-of-line body of the product and one of the square, its
-// operands by value.  An inlined mixed add and doubling are some 22,000
-// instructions, more than the instruction cache holds, so one warp's chain
-// of them waits on instruction fetch; the called form runs from two bodies
-// of ~1,200 instructions.  The form for a kernel of a few warps whose time
-// is one thread's chain.
-static __device__ __noinline__ Fp fp_mul_lazy_called(const Fp a, const Fp b) {
+// The products of the point formulas: one out-of-line body of the
+// redundant product and one of the square, operands and result by value
+// in registers.  Inlined, a mixed add and a doubling are some 22,000
+// instructions, past what the SM's instruction cache holds, so every warp
+// of a point formula waits on instruction fetch; called, they run from
+// two bodies of ~1,200 instructions that stay cached, and each formula
+// keeps fewer values live (PERF.md has the measurements).
+static __device__ __noinline__ Fp fp_mul_call(const Fp a, const Fp b) {
   Fp r;
   fp_mul_lazy(r, a, b);
   return r;
 }
 
-static __device__ __noinline__ Fp fp_sqr_lazy_called(const Fp a) {
+static __device__ __noinline__ Fp fp_sqr_call(const Fp a) {
   Fp r;
   fp_sqr_lazy(r, a);
   return r;
 }
 
-struct CalledProducts {
-  static __device__ __forceinline__ void mul(Fp &r, const Fp &a, const Fp &b) {
-    r = fp_mul_lazy_called(a, b);
-  }
-  static __device__ __forceinline__ void sqr(Fp &r, const Fp &a) { r = fp_sqr_lazy_called(a); }
-};
-
-#ifndef G1_PRODUCTS
-#define G1_PRODUCTS InlineProducts
-#endif
-
 // The canonical product and square, inputs < p, outputs < p (the point
-// formulas use the redundant forms; kernel_probe.py times these).
+// formulas use the redundant forms; kernel_probe.py times both).
 __device__ __forceinline__ void fp_mul(Fp &r, const Fp &a, const Fp &b) {
   fp_mul_lazy(r, a, b);
   fp_reduce_once(r.w);
@@ -316,20 +296,19 @@ __device__ __forceinline__ void store_jac(int64_t *x, int64_t *y, int64_t *z,
 // dbl-2009-l (curve.py _dbl_impl) in redundant form: coordinates in
 // [0, 2p) in and out.  The identity (z = 0, or p once redundant) stays
 // the identity: z3 = 2yz.
-template <class P = G1_PRODUCTS>
 __device__ __forceinline__ void g1_dbl_lazy(Jac &r, const Jac &p) {
   Fp a, b, c, d, e, f, t;
-  P::sqr(a, p.x);
-  P::sqr(b, p.y);
-  P::sqr(c, b);
+  a = fp_sqr_call(p.x);
+  b = fp_sqr_call(p.y);
+  c = fp_sqr_call(b);
   fp_add_mod<true>(t, p.x, b);
-  P::sqr(d, t);
+  d = fp_sqr_call(t);
   fp_sub_mod<true>(d, d, a);
   fp_sub_mod<true>(d, d, c);
   fp_add_mod<true>(d, d, d);           // d = 2((x + b)^2 - a - c)
   fp_add_mod<true>(e, a, a);
   fp_add_mod<true>(e, e, a);           // e = 3a
-  P::sqr(f, e);
+  f = fp_sqr_call(e);
   Jac o;
   fp_add_mod<true>(t, d, d);
   fp_sub_mod<true>(o.x, f, t);         // x3 = e^2 - 2d
@@ -337,10 +316,10 @@ __device__ __forceinline__ void g1_dbl_lazy(Jac &r, const Jac &p) {
   fp_add_mod<true>(c, c, c);
   fp_add_mod<true>(c, c, c);           // 8c
   fp_sub_mod<true>(t, d, o.x);
-  P::mul(t, e, t);
+  t = fp_mul_call(e, t);
   fp_sub_mod<true>(o.y, t, c);         // y3 = e(d - x3) - 8c
   fp_add_mod<true>(t, p.y, p.y);
-  P::mul(o.z, t, p.z);                 // z3 = 2yz
+  o.z = fp_mul_call(t, p.z);           // z3 = 2yz
   r = o;
 }
 
@@ -367,7 +346,6 @@ static __device__ __noinline__ void g1_dbl_branch(Jac &r, const Jac &p) {
 // Complete Jacobian addition (add-2007-bl, curve.py _add_impl) in
 // redundant form: coordinates in [0, 2p) in and out.  Returns 1 when the
 // same-point lane took the doubling branch, else 0.  r may alias p or q.
-template <class P = G1_PRODUCTS>
 __device__ __forceinline__ int g1_add_lazy(Jac &r, const Jac &p, const Jac &q) {
   if (fp_is_zero_lazy(p.z)) {
     r = q;
@@ -378,14 +356,14 @@ __device__ __forceinline__ int g1_add_lazy(Jac &r, const Jac &p, const Jac &q) {
     return 0;
   }
   Fp z1z1, z2z2, u1, u2, s1, s2, h, i, j, rr, v, t;
-  P::sqr(z1z1, p.z);
-  P::sqr(z2z2, q.z);
-  P::mul(u1, p.x, z2z2);
-  P::mul(u2, q.x, z1z1);
-  P::mul(s1, p.y, q.z);
-  P::mul(s1, s1, z2z2);
-  P::mul(s2, q.y, p.z);
-  P::mul(s2, s2, z1z1);
+  z1z1 = fp_sqr_call(p.z);
+  z2z2 = fp_sqr_call(q.z);
+  u1 = fp_mul_call(p.x, z2z2);
+  u2 = fp_mul_call(q.x, z1z1);
+  s1 = fp_mul_call(p.y, q.z);
+  s1 = fp_mul_call(s1, z2z2);
+  s2 = fp_mul_call(q.y, p.z);
+  s2 = fp_mul_call(s2, z1z1);
   fp_sub_mod<true>(h, u2, u1);
   fp_sub_mod<true>(rr, s2, s1);
   if (fp_is_zero_lazy(h) && fp_is_zero_lazy(rr)) {
@@ -393,25 +371,25 @@ __device__ __forceinline__ int g1_add_lazy(Jac &r, const Jac &p, const Jac &q) {
     return 1;
   }
   fp_add_mod<true>(t, h, h);
-  P::sqr(i, t);
-  P::mul(j, h, i);
+  i = fp_sqr_call(t);
+  j = fp_mul_call(h, i);
   fp_add_mod<true>(rr, rr, rr);
-  P::mul(v, u1, i);
+  v = fp_mul_call(u1, i);
   Jac o;
-  P::sqr(t, rr);
+  t = fp_sqr_call(rr);
   fp_sub_mod<true>(t, t, j);
   fp_add_mod<true>(o.x, v, v);
   fp_sub_mod<true>(o.x, t, o.x);       // x3 = rr^2 - j - 2v
-  P::mul(s1, s1, j);
+  s1 = fp_mul_call(s1, j);
   fp_add_mod<true>(s1, s1, s1);
   fp_sub_mod<true>(t, v, o.x);
-  P::mul(t, rr, t);
+  t = fp_mul_call(rr, t);
   fp_sub_mod<true>(o.y, t, s1);        // y3 = rr(v - x3) - 2 s1 j
   fp_add_mod<true>(t, p.z, q.z);
-  P::sqr(t, t);
+  t = fp_sqr_call(t);
   fp_sub_mod<true>(t, t, z1z1);
   fp_sub_mod<true>(t, t, z2z2);
-  P::mul(o.z, t, h);                   // z3 = ((z1 + z2)^2 - z1z1 - z2z2) h
+  o.z = fp_mul_call(t, h);             // z3 = ((z1 + z2)^2 - z1z1 - z2z2) h
   r = o;
   return 0;
 }
@@ -419,7 +397,6 @@ __device__ __forceinline__ int g1_add_lazy(Jac &r, const Jac &p, const Jac &q) {
 // Complete mixed addition p + (qx, qy) with q affine and finite
 // (madd-2007-bl, curve.py _madd_impl) in redundant form: coordinates in
 // [0, 2p) in and out.  Returns 1 on the doubling branch.  r may alias p.
-template <class P = G1_PRODUCTS>
 __device__ __forceinline__ int g1_madd_lazy(Jac &r, const Jac &p, const Fp &qx, const Fp &qy) {
   if (fp_is_zero_lazy(p.z)) {
     r.x = qx;
@@ -428,34 +405,34 @@ __device__ __forceinline__ int g1_madd_lazy(Jac &r, const Jac &p, const Fp &qx, 
     return 0;
   }
   Fp z1z1, u2, s2, h, hh, i, j, rr, v, t;
-  P::sqr(z1z1, p.z);
-  P::mul(u2, qx, z1z1);
-  P::mul(s2, qy, p.z);
-  P::mul(s2, s2, z1z1);
+  z1z1 = fp_sqr_call(p.z);
+  u2 = fp_mul_call(qx, z1z1);
+  s2 = fp_mul_call(qy, p.z);
+  s2 = fp_mul_call(s2, z1z1);
   fp_sub_mod<true>(h, u2, p.x);
   fp_sub_mod<true>(rr, s2, p.y);
   if (fp_is_zero_lazy(h) && fp_is_zero_lazy(rr)) {
     g1_dbl_branch(r, p);
     return 1;
   }
-  P::sqr(hh, h);
+  hh = fp_sqr_call(h);
   fp_add_mod<true>(i, hh, hh);
   fp_add_mod<true>(i, i, i);
-  P::mul(j, h, i);
+  j = fp_mul_call(h, i);
   fp_add_mod<true>(rr, rr, rr);
-  P::mul(v, p.x, i);
+  v = fp_mul_call(p.x, i);
   Jac o;
-  P::sqr(t, rr);
+  t = fp_sqr_call(rr);
   fp_sub_mod<true>(t, t, j);
   fp_add_mod<true>(o.x, v, v);
   fp_sub_mod<true>(o.x, t, o.x);       // x3 = rr^2 - j - 2v
-  P::mul(u2, p.y, j);
+  u2 = fp_mul_call(p.y, j);
   fp_add_mod<true>(u2, u2, u2);
   fp_sub_mod<true>(t, v, o.x);
-  P::mul(t, rr, t);
+  t = fp_mul_call(rr, t);
   fp_sub_mod<true>(o.y, t, u2);        // y3 = rr(v - x3) - 2 y1 j
   fp_add_mod<true>(t, p.z, h);
-  P::sqr(t, t);
+  t = fp_sqr_call(t);
   fp_sub_mod<true>(t, t, z1z1);
   fp_sub_mod<true>(o.z, t, hh);        // z3 = (z1 + h)^2 - z1z1 - hh
   r = o;
@@ -464,16 +441,14 @@ __device__ __forceinline__ int g1_madd_lazy(Jac &r, const Jac &p, const Fp &qx, 
 
 // The canonical additions: canonical coordinates in (they lie in [0, 2p))
 // and out, the redundant form in between.
-template <class P = G1_PRODUCTS>
 __device__ __forceinline__ int g1_add(Jac &r, const Jac &p, const Jac &q) {
-  int doubled = g1_add_lazy<P>(r, p, q);
+  int doubled = g1_add_lazy(r, p, q);
   g1_reduce(r);
   return doubled;
 }
 
-template <class P = G1_PRODUCTS>
 __device__ __forceinline__ int g1_madd(Jac &r, const Jac &p, const Fp &qx, const Fp &qy) {
-  int doubled = g1_madd_lazy<P>(r, p, qx, qy);
+  int doubled = g1_madd_lazy(r, p, qx, qy);
   g1_reduce(r);
   return doubled;
 }

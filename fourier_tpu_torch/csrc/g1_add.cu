@@ -21,9 +21,6 @@
 #include "g1.cuh"
 
 #define ADD_THREADS 128
-#ifndef ADD_PRODUCTS
-#define ADD_PRODUCTS InlineProducts
-#endif
 
 __global__ void __launch_bounds__(ADD_THREADS)
 g1_add_kernel(const int64_t *__restrict__ x1, const int64_t *__restrict__ y1,
@@ -36,7 +33,7 @@ g1_add_kernel(const int64_t *__restrict__ x1, const int64_t *__restrict__ y1,
   Jac p, q, r;
   load_jac(p, x1, y1, z1, n, i);
   load_jac(q, x2, y2, z2, n, i);
-  if (g1_add<ADD_PRODUCTS>(r, p, q)) atomicAdd(collisions, 1ull);
+  if (g1_add(r, p, q)) atomicAdd(collisions, 1ull);
   store_jac(out_x, out_y, out_z, n, i, r);
 }
 

@@ -33,13 +33,7 @@
 #include "g1.cuh"
 
 #define MADD_THREADS 128
-#define LADDER_THREADS 32
-#ifndef MADD_PRODUCTS
-#define MADD_PRODUCTS InlineProducts
-#endif
-#ifndef LADDER_PRODUCTS
-#define LADDER_PRODUCTS CalledProducts
-#endif
+#define LADDER_THREADS 64
 
 __global__ void __launch_bounds__(MADD_THREADS)
 g1_madd_kernel(const int64_t *__restrict__ x1, const int64_t *__restrict__ y1,
@@ -57,7 +51,7 @@ g1_madd_kernel(const int64_t *__restrict__ x1, const int64_t *__restrict__ y1,
     Fp qx, qy;
     load_fp(qx, x2, n, i);
     load_fp(qy, y2, n, i);
-    if (g1_madd<MADD_PRODUCTS>(r, p, qx, qy)) atomicAdd(collisions, 1ull);
+    if (g1_madd(r, p, qx, qy)) atomicAdd(collisions, 1ull);
   }
   store_jac(out_x, out_y, out_z, n, i, r);
 }
@@ -79,10 +73,9 @@ g1_madd_ladder_kernel(const int64_t *__restrict__ x, const int64_t *__restrict__
   fp_set_zero(acc.z);
   unsigned long long doubled = 0;
   for (int b = nbits - 1; b >= 0; b--) {
-    if (b != nbits - 1) g1_dbl_lazy<LADDER_PRODUCTS>(acc, acc);
+    if (b != nbits - 1) g1_dbl_lazy(acc, acc);
     const uint32_t limb = (uint32_t)scalars[(int64_t)(b >> 4) * n + i];
-    if (finite && ((limb >> (b & 15)) & 1u))
-      doubled += g1_madd_lazy<LADDER_PRODUCTS>(acc, acc, qx, qy);
+    if (finite && ((limb >> (b & 15)) & 1u)) doubled += g1_madd_lazy(acc, acc, qx, qy);
   }
   g1_reduce(acc);
   store_jac(out_x, out_y, out_z, n, i, acc);

@@ -1,11 +1,12 @@
-"""K5 (g1_madd at 32 and 2^19 lanes), K2 (g1_add at 32, 32,768 and 2^19
-lanes) and K5's ladder (8 and 64 lanes x 255 bits) for several block
-shapes (threads a block, minimum blocks an SM in __launch_bounds__) and
-both product forms of csrc/g1.cuh (inlined, called), each built alone from
-its source in csrc/ with ptxas's registers and spills, checked against the
-library's kernel and timed by CUDA events in two turns (forward, then
-backward), the launches queued behind a sleep so that host time between
-them is not counted.  Run from the root of the repository on a card:
+"""Block shapes and register caps of K1's pass 1 (accumulate at one
+commit's 2^23 rows), K5 (g1_madd at 32 and 2^19 lanes), K2 (g1_add at 32,
+32,768 and 2^19 lanes) and K5's ladder (8 and 64 lanes x 255 bits): each
+variant (threads a block, minimum blocks an SM in __launch_bounds__) built
+alone from its source in csrc/ with ptxas's registers and spills, checked
+against the library's kernel and timed by CUDA events in two turns
+(forward, then backward), the launches queued behind a sleep so that host
+time between them is not counted.  Run from the root of the repository on
+a card:
 
     python3 k5_k2_block_sweep.py      # writes chiprun_out/k5_k2_sweep.json
 """
@@ -21,46 +22,54 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from fourier_tpu_torch.ops import kernels  # noqa: E402
+from fourier_tpu_torch.ops import msm_fused as mf  # noqa: E402
 from fourier_tpu_torch.ops.curve import G1Aff, G1Jac  # noqa: E402
 
-# (threads, minimum blocks, products: I inlined, C called)
+# source, the macro prefix of its block shape, (threads, minimum blocks)
 VARIANTS = {
-    "g1_madd": ("g1_madd.cu", "MADD", [(128, 0, "I"), (128, 4, "I"), (128, 0, "C"),
-                                       (256, 0, "C"), (128, 4, "C")]),
-    "g1_add": ("g1_add.cu", "ADD", [(128, 0, "I"), (128, 4, "I"), (128, 0, "C"),
-                                    (256, 0, "C")]),
-    "ladder": ("g1_madd.cu", "LADDER", [(32, 0, "C"), (32, 0, "I"), (64, 0, "C")]),
+    "accumulate": ("accumulate.cu", "ACC", [(128, 3), (128, 2), (128, 1), (128, 4)]),
+    "g1_madd": ("g1_madd.cu", "MADD", [(128, 0), (256, 0), (64, 0)]),
+    "g1_add": ("g1_add.cu", "ADD", [(128, 0), (256, 0), (64, 0)]),
+    "ladder": ("g1_madd.cu", "LADDER", [(64, 0), (32, 0)]),
 }
-FORMS = {"I": "InlineProducts", "C": "CalledProducts"}
+ENTRY = {"accumulate": "accumulate_pieces_kernel", "g1_madd": "g1_madd_kernel",
+         "g1_add": "g1_add_kernel", "ladder": "g1_madd_ladder_kernel"}
 build = os.path.join(ROOT, "_checkout", "sweep_build")
 os.makedirs(build, exist_ok=True)
 nvcc = kernels._nvcc()
 procs = []
 for name, (src_name, macro, variants) in VARIANTS.items():
     src = open(os.path.join(kernels.CSRC, src_name)).read()
-    for T, B, form in variants:
+    for T, B in variants:
         v = re.sub(rf"#define {macro}_THREADS \d+", f"#define {macro}_THREADS {T}", src)
-        if B:
+        if name == "accumulate":
+            v = re.sub(r"#define ACC_MIN_BLOCKS \d+", f"#define ACC_MIN_BLOCKS {B}", v)
+        elif B:
             v = v.replace(f"__launch_bounds__({macro}_THREADS)",
                           f"__launch_bounds__({macro}_THREADS, {B})")
-        path = os.path.join(build, f"{name}_{T}_{B}_{form}.cu")
+        path = os.path.join(build, f"{name}_{T}_{B}.cu")
         open(path, "w").write(v)
         so = path[:-3] + ".so"
-        procs.append((name, f"{T}x{B}{form}", so, subprocess.Popen(
+        procs.append((name, f"{T}x{B}", so, subprocess.Popen(
             [nvcc, *kernels._ARCH, "-std=c++17", "-O3", "-I", kernels.CSRC, "-Xptxas", "-v",
-             f"-D{macro}_PRODUCTS={FORMS[form]}", "-Xcompiler", "-fPIC", "-shared", "-o", so,
-             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-entry = {"g1_madd": "g1_madd_kernel", "g1_add": "g1_add_kernel", "ladder": "g1_madd_ladder_kernel"}
+             "-Xcompiler", "-fPIC", "-shared", "-o", so, path,
+             os.path.join(kernels.CSRC, "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
 libs = []
+vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 for name, key, so, p in procs:
     out = p.communicate()[0]
     assert p.returncode == 0, out
-    body = out.split(entry[name])[-1]
+    body = out.split(ENTRY[name])[-1]
     regs = int(re.search(r"Used (\d+) registers", body).group(1))
     spill = int(re.search(r"(\d+) bytes spill stores", body).group(1))
     lib = ctypes.CDLL(so)
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    if name == "g1_add":
+    lib.fk_error_string.argtypes = [ctypes.c_int]
+    lib.fk_error_string.restype = ctypes.c_char_p
+    if name == "accumulate":
+        lib.fk_accumulate.argtypes = [vp] * 5 + [i64, i32, i64] + [vp] * 6
+        lib.fk_accumulate.restype = ctypes.c_int
+    elif name == "g1_add":
         lib.fk_g1_add.argtypes = [vp] * 9 + [i64, vp, vp]
     else:
         lib.fk_g1_madd.argtypes = [vp] * 9 + [i64, vp, vp]
@@ -78,57 +87,81 @@ def rnd(n):
     return x
 
 
+# K1 at the main path's shape (kernel_probe.py section 3)
+T = 1 << 19
+c = mf.bgmw_auto_window(T)
+rows = -(-256 // c) * T
+no_inf = torch.zeros(rows, dtype=torch.bool, device="cuda")
+table = mf.pack_points(G1Aff(rnd(rows), rnd(rows), no_inf))
+scalars = torch.randint(0, 1 << 16, (16, T), generator=gen, device="cuda", dtype=torch.int64)
+scalars[15] %= 0x73ED
+digits, neg = mf.bgmw_digits_for(scalars, c, -(-256 // c))
+runs = mf.bucket_runs(no_inf, digits, c, neg)[:3]
+
 N5 = 1 << 19
 p = G1Jac(rnd(N5), rnd(N5), rnd(N5))
 q = G1Jac(rnd(N5), rnd(N5), rnd(N5))
 q_aff = G1Aff(q.x, q.y, torch.arange(N5, device="cuda") % 64 == 0)
 lad = G1Aff(rnd(64), rnd(64), torch.zeros(64, dtype=torch.bool, device="cuda"))
-sc = torch.randint(0, 1 << 16, (16, 64), generator=gen, device="cuda", dtype=torch.int64)
-sc[15] %= 0x73ED
+sc = scalars[:, :64].contiguous()
 col = torch.zeros(1, dtype=torch.int64, device="cuda")
 stream = torch.cuda.current_stream().cuda_stream
-shapes = {"g1_madd": [32, N5], "g1_add": [32, 1 << 15, N5], "ladder": [8, 64]}
-refs = {("g1_madd", N5): kernels.g1_madd(p, q_aff),
-        ("g1_madd", 32): kernels.g1_madd(G1Jac(*(c[:, :32].contiguous() for c in p)),
-                                         G1Aff(*(c[..., :32].contiguous() for c in q_aff))),
-        ("ladder", 64): kernels.g1_madd_ladder(lad, sc, 255),
-        ("ladder", 8): kernels.g1_madd_ladder(G1Aff(*(c[..., :8].contiguous() for c in lad)),
-                                              sc[:, :8].contiguous(), 255)}
+shapes = {"accumulate": [rows], "g1_madd": [32, N5], "g1_add": [32, 1 << 15, N5],
+          "ladder": [8, 64]}
+refs = {("accumulate", rows): kernels.accumulate(table, *runs)}
+for n in shapes["g1_madd"]:
+    refs[("g1_madd", n)] = kernels.g1_madd(G1Jac(*(t[:, :n].contiguous() for t in p)),
+                                           G1Aff(*(t[..., :n].contiguous() for t in q_aff)))
 for n in shapes["g1_add"]:
-    refs[("g1_add", n)] = kernels.g1_add(G1Jac(*(c[:, :n].contiguous() for c in p)),
-                                         G1Jac(*(c[:, :n].contiguous() for c in q)))
+    refs[("g1_add", n)] = kernels.g1_add(G1Jac(*(t[:, :n].contiguous() for t in p)),
+                                         G1Jac(*(t[:, :n].contiguous() for t in q)))
+for n in shapes["ladder"]:
+    refs[("ladder", n)] = kernels.g1_madd_ladder(G1Aff(*(t[..., :n].contiguous() for t in lad)),
+                                                 sc[:, :n].contiguous(), 255)
 
 
 def launcher(name, lib, n):
+    """fn() launching the variant once and returning its output."""
+    if name == "accumulate":
+        real = kernels.build
+
+        def fn():
+            kernels.build = lambda: lib
+            try:
+                return kernels.accumulate(table, *runs)
+            finally:
+                kernels.build = real
+        return fn
     out = [torch.empty((24, n), dtype=torch.int64, device="cuda") for _ in range(3)]
-    ptrs = [c.data_ptr() for c in out]
+    ptrs = [t.data_ptr() for t in out]
     if name == "g1_madd":
-        a = [c[..., :n].contiguous() for c in (*p, *q_aff)]
-        out.append(a)
-        fn = lambda: lib.fk_g1_madd(*(c.data_ptr() for c in a), *ptrs, n,  # noqa: E731
-                                    col.data_ptr(), stream)
+        a = [t[..., :n].contiguous() for t in (*p, *q_aff)]
+        call = lambda: lib.fk_g1_madd(*(t.data_ptr() for t in a), *ptrs, n,  # noqa: E731
+                                      col.data_ptr(), stream)
     elif name == "g1_add":
-        a = [c[:, :n].contiguous() for c in p] + [c[:, :n].contiguous() for c in q]
-        out.append(a)
-        fn = lambda: lib.fk_g1_add(*(c.data_ptr() for c in a), *ptrs, n,  # noqa: E731
-                                   col.data_ptr(), stream)
+        a = [t[:, :n].contiguous() for t in (*p, *q)]
+        call = lambda: lib.fk_g1_add(*(t.data_ptr() for t in a), *ptrs, n,  # noqa: E731
+                                     col.data_ptr(), stream)
     else:
-        a = [c[..., :n].contiguous() for c in (*lad, sc)]
-        out.append(a)
-        fn = lambda: lib.fk_g1_madd_ladder(*(c.data_ptr() for c in a), 255, *ptrs, n,  # noqa
-                                           col.data_ptr(), stream)
-    return fn, out
+        a = [t[..., :n].contiguous() for t in (*lad, sc)]
+        call = lambda: lib.fk_g1_madd_ladder(*(t.data_ptr() for t in a), 255,  # noqa: E731
+                                             *ptrs, n, col.data_ptr(), stream)
+
+    def fn():
+        assert call() == 0
+        return out
+    return fn
 
 
 times = {}
 for order in (libs, libs[::-1]):
     for name, key, lib, regs, spill in order:
         for n in shapes[name]:
-            fn, out = launcher(name, lib, n)
-            assert fn() == 0
+            fn = launcher(name, lib, n)
+            got = fn()
             torch.cuda.synchronize()
-            assert all(torch.equal(a, b) for a, b in zip(out[:3], refs[(name, n)])), (name, key)
-            reps = 20 if name != "ladder" else 5
+            assert all(torch.equal(a, b) for a, b in zip(got, refs[(name, n)])), (name, key)
+            reps = {"accumulate": 3, "ladder": 5}.get(name, 20)
             torch.cuda._sleep(100_000_000)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()

@@ -16,7 +16,8 @@ object, and written to --out FILE where one is given):
    registers (ptxas), instructions of one product (one square) by opcode
    (cuobjdump -sass of a one-product kernel), the rate of dependent chains
    over 2^20 lanes and the latency of one product (square) in a single
-   warp's chain (CUDA events), and the latency of one complete add and
+   warp's chain (CUDA events), the latency of the redundant product and
+   square (no final subtraction), and the latency of one complete add and
    one mixed add (a chain of 64 dependent ones of random coordinates on
    32 lanes); then ptxas's registers, stack and spills for each kernel of
    the library;
@@ -179,6 +180,19 @@ def fp_mul(build_dir):
     sqr_ms, _ = cuda_ms(lambda: sqr_chain(y, iters, n), 3)
     sqr_warp_ms, _ = cuda_ms(lambda: sqr_chain(w, 256, 32), 3)
 
+    # the redundant product and square (no final subtraction) in one warp
+    lib.fk_bench_lazy_chain.argtypes = [vp, vp, ci, i64, ci, vp]
+    lazy_us = {}
+    for label, square in (("mul", 0), ("sqr", 1)):
+        def lazy_chain():
+            rc = lib.fk_bench_lazy_chain(w.data_ptr(), m.data_ptr(), 256, 32, square, stream)
+            if rc != 0:
+                raise RuntimeError(f"bench_lazy_chain failed: CUDA error {rc}")
+
+        lazy_chain()
+        lazy_ms, _ = cuda_ms(lazy_chain, 3)
+        lazy_us[label] = lazy_ms * 1e3 / 256
+
     # one warp's chain of 64 dependent complete (mixed) additions of
     # random coordinates: the latency of one addition
     lib.fk_bench_add_chain.argtypes = [vp, vp, ci, ci, i64, vp]
@@ -210,6 +224,7 @@ def fp_mul(build_dir):
            "sqr_sass_total": sum(sqr_ops.values()),
            "sqr_sass_imad": sum(c for op, c in sqr_ops.items() if op.startswith("IMAD")),
            "sqr_per_s": n * iters / (sqr_ms * 1e-3), "sqr_latency_us": sqr_warp_ms * 1e3 / 256,
+           "lazy_latency_us": lazy_us["mul"], "lazy_sqr_latency_us": lazy_us["sqr"],
            "add_latency_us": add_us["add"], "madd_latency_us": add_us["madd"]}
     log(f"fp_mul: {rec['sass_imad']} IMAD-class ({rec['sass_imad_wide']} wide, "
         f"{rec['sass_imad_mov']} moves), {rec['sass_iadd3']} IADD3, {rec['sass_total']} "
@@ -218,7 +233,9 @@ def fp_mul(build_dir):
         f"{rec['products_per_s']:.4e} products/s; one warp: {rec['latency_us']:.4f} us a "
         f"dependent product; fp_sqr: {rec['sqr_sass_imad']} IMAD-class, "
         f"{rec['sqr_sass_total']} SASS instructions, {rec['sqr_per_s']:.4e} squares/s, one "
-        f"warp {rec['sqr_latency_us']:.4f} us a dependent square; one warp: "
+        f"warp {rec['sqr_latency_us']:.4f} us a dependent square; redundant (no final "
+        f"subtraction): {rec['lazy_latency_us']:.4f} us a product, "
+        f"{rec['lazy_sqr_latency_us']:.4f} us a square; one warp: "
         f"{rec['add_latency_us']:.4f} us a dependent complete add, "
         f"{rec['madd_latency_us']:.4f} us a dependent mixed add")
     return rec
