@@ -105,11 +105,12 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 # (the arithmetic-instruction throughput table of the CUDA C++ Programming
 # Guide); the peak is this x SMs x the card's maximum SM clock.
 IMAD_PER_CLOCK_PER_SM = 64
-# The latency of one dependent Fp product and square in one warp's chain,
-# microseconds (kernel_probe.py --sass on an H100 80GB HBM3 at 700 W): the
-# latency floor of a point operation is its products and squares in
-# series, of a ladder its longest lane's chain of them.
-PRODUCT_US, SQUARE_US = 1.916, 1.064
+# The latency of one dependent redundant Fp product and square (csrc/g1.cuh
+# fp_mul_lazy, fp_sqr_lazy) in one warp's chain, microseconds
+# (kernel_probe.py --sass on an H100 80GB HBM3 at 700 W): the latency floor
+# of a point operation is its products and squares in series, of a ladder
+# its longest lane's chain of them.
+PRODUCT_US, SQUARE_US = 1.290, 1.074
 OP_US = {"add": 11 * PRODUCT_US + 5 * SQUARE_US, "madd": 7 * PRODUCT_US + 4 * SQUARE_US,
          "dbl": 2 * PRODUCT_US + 5 * SQUARE_US}
 

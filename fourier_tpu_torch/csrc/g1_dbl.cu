@@ -16,10 +16,10 @@
 // x, y and z are made canonical once before the store, so the limbs equal
 // `repeat` canonical doublings (the reference's _dbl_n).
 //
-// Occupancy: ptxas gives this kernel 128 registers (24 bytes of spill),
-// so an SM holds 512 threads whatever the block shape.  Blocks of 256
-// threads ran 4% faster than 128, 64, or any minimum-blocks cap, in one
-// paired measurement (PERF.md).
+// Occupancy: with the out-of-line products of g1.cuh ptxas gives this
+// kernel 118 registers and no spill.  Blocks of 256 threads ran 4% faster
+// than 128, 64, or any minimum-blocks cap, in one paired measurement of
+// the inlined form (PERF.md).
 
 #include "g1.cuh"
 

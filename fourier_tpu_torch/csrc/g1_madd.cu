@@ -27,8 +27,10 @@
 // ladder is one lane's chain of nbits - 1 doublings and a mixed add a set
 // bit, so its floor is that chain's latency.
 //
-// Occupancy: ptxas's registers and spills and the block shapes measured
-// are in PERF.md.
+// Occupancy: ptxas gives the batched entry 220 registers and the ladder
+// 226, no spill.  At 2^19 lanes blocks of 128 threads ran faster than 64
+// or 256; the ladder's 64-lane rows ran 1% faster as one block of 64 than
+// as two of 32 (PERF.md).
 
 #include "g1.cuh"
 

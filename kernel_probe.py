@@ -38,7 +38,10 @@ object, and written to --out FILE where one is given):
    latency of a doubling); K2 at 1, 2, 4 and 32 lanes (msm_naive's tree
    levels) and 32,768, K5 at 8 and 64 lanes (msm_naive's rows) and 2^19,
    mean of 20, and K5's ladder entry, where the package has one, at 8 and
-   64 lanes x 255 bits, mean of 5; all by CUDA events after a warm launch;
+   64 lanes x 255 bits, mean of 5; all by CUDA events after a warm launch,
+   K2, K5 and the ladder with the launches queued behind a sleep on the
+   card (device time), K2 and K5 also back to back without it (a call's
+   time as a caller sees it);
 7. msm_naive at 8 and 64 random points (events around the call and wall,
    and its launches), and in-process worker_commit and worker_open of the
    pinned scale-4 transcript's rows without tables (msm_naive);
@@ -84,6 +87,16 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def queued_ms(fn, reps):
+    """cuda_ms with the launches queued behind ~50 ms of sleep on the card:
+    device time, without the host's time between launches."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    return cuda_ms(fn, reps)
 
 
 def wall_ms(fn, reps):
@@ -397,21 +410,26 @@ def kernels_alone(report):
         f"dependent doubling")
 
     # K2 at msm_naive's tree levels (1-32 lanes) and at 32,768 lanes (its
-    # throughput reading); K5 at msm_naive's rows (8, 64 lanes) and 2^19
-    k2, k5 = {}, {}
+    # throughput reading); K5 at msm_naive's rows (8, 64 lanes) and 2^19:
+    # device time (launches queued), and a call's time back to back (the
+    # wrapper's host time where that is longer)
+    k2, k5, k2_call, k5_call = {}, {}, {}, {}
     for n in (1, 2, 4, 32, 1 << 15):
         q = G1Jac(*(rand_fp(n, gen) for _ in range(3)))
         a = G1Jac(*(c[:, :n].contiguous() for c in p))
         kernels.g1_add(a, q)
-        k2[n], _ = cuda_ms(lambda: kernels.g1_add(a, q), 20)
+        k2[n], _ = queued_ms(lambda: kernels.g1_add(a, q), 20)
+        k2_call[n], _ = cuda_ms(lambda: kernels.g1_add(a, q), 20)
     for n in (8, 64, T):
         q_aff = G1Aff(rand_fp(n, gen), rand_fp(n, gen), torch.arange(n, device="cuda") % 64 == 0)
         a = G1Jac(*(c[:, :n].contiguous() for c in p))
         kernels.g1_madd(a, q_aff)
-        k5[n], _ = cuda_ms(lambda: kernels.g1_madd(a, q_aff), 20)
-    report["k2"] = {"ms_by_lanes": k2}
-    report["k5"] = {"ms_by_lanes": k5}
-    log(f"K2 ms by lanes: {k2}; K5 ms by lanes: {k5}")
+        k5[n], _ = queued_ms(lambda: kernels.g1_madd(a, q_aff), 20)
+        k5_call[n], _ = cuda_ms(lambda: kernels.g1_madd(a, q_aff), 20)
+    report["k2"] = {"ms_by_lanes": k2, "call_ms_by_lanes": k2_call}
+    report["k5"] = {"ms_by_lanes": k5, "call_ms_by_lanes": k5_call}
+    log(f"K2 ms by lanes: {k2} (a call back to back: {k2_call}); K5 ms by lanes: {k5} "
+        f"(a call back to back: {k5_call})")
     if hasattr(kernels, "g1_madd_ladder"):
         ladder = {}
         for n in (8, 64):
@@ -419,7 +437,7 @@ def kernels_alone(report):
                         torch.zeros(n, dtype=torch.bool, device="cuda"))
             sc = rand_fr(n, gen)
             kernels.g1_madd_ladder(pts, sc, 255)
-            ladder[n], _ = cuda_ms(lambda: kernels.g1_madd_ladder(pts, sc, 255), 5)
+            ladder[n], _ = queued_ms(lambda: kernels.g1_madd_ladder(pts, sc, 255), 5)
         report["ladder"] = {"ms_by_lanes": ladder, "nbits": 255}
         log(f"K5 ladder (255 bits) ms by lanes: {ladder}")
 
