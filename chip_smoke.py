@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    to three pieces; the tree kernel on groups whose halves meet the same
    point, its inverse or an identity; K3 on coordinates 0, 1, p - 1,
    identities and lanes whose redundant values come near 2p, repeated 1,
-   3 and 16 times; K2 and K5 on such lanes too, with P = Q and P = -Q;
+   3 and 16 times; K2 and K5 on such lanes too, with P = Q and P = -Q
+   (tests/torch_redundant.py picks them);
    K5's ladder at 8 and 64 lanes and 0, 1 and 255 bits, with a point at
    infinity and scalars 0, 1, r - 1 and r + 2; K4 on all-identity terms,
    one finite lane, equal terms and identity lanes), then the shapes the
@@ -28,7 +29,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    reduction of its buckets, K4 at that reduction's K = 16 terms of 64
    lanes and at the tableless MSM's K = 260 terms of 32 lanes; K5's
    ladder, K2 and K5 at msm_naive's shapes (rows of 8 and 64 points, tree
-   levels of 1 to 32 lanes) and at their throughput shapes.
+   levels of 1 to 32 lanes) and at their throughput shapes, with latency
+   floors from the product and square latencies measured in one warp
+   (csrc/fp_mul_bench.cu) in the same run.
 2. The pinned protocol transcript (tests/fixtures) reproduced on the card.
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
    MSM of fourier_tpu_torch.native on the same row.
@@ -87,8 +90,10 @@ KERNEL_INFO = {
     "g1_dbl": ("fourier_tpu_torch/csrc/g1_dbl.cu", "fourier_tpu/ops/pallas_curve.py:224"),
     "horner_2k": ("fourier_tpu_torch/csrc/horner_2k.cu", "fourier_tpu/ops/pallas_curve.py:255"),
     "g1_madd": ("fourier_tpu_torch/csrc/g1_madd.cu", "fourier_tpu/ops/pallas_curve.py:198"),
+    # msm_naive's steps in the reference: add_fast and dbl_fast
+    # (fourier_tpu/ops/msm.py:209) reach _add_inc_kernel and _dbl_kernel
     "g1_madd_ladder": ("fourier_tpu_torch/csrc/g1_madd.cu",
-                       "fourier_tpu/ops/pallas_curve.py:198"),
+                       "fourier_tpu/ops/pallas_curve.py:470 and :224"),
 }
 
 # Work counts for the bounds.  A Montgomery product of 12-word Fp values
@@ -105,14 +110,10 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 # (the arithmetic-instruction throughput table of the CUDA C++ Programming
 # Guide); the peak is this x SMs x the card's maximum SM clock.
 IMAD_PER_CLOCK_PER_SM = 64
-# The latency of one dependent redundant Fp product and square (csrc/g1.cuh
-# fp_mul_lazy, fp_sqr_lazy) in one warp's chain, microseconds
-# (kernel_probe.py --sass on an H100 80GB HBM3 at 700 W): the latency floor
-# of a point operation is its products and squares in series, of a ladder
-# its longest lane's chain of them.
-PRODUCT_US, SQUARE_US = 1.290, 1.074
-OP_US = {"add": 11 * PRODUCT_US + 5 * SQUARE_US, "madd": 7 * PRODUCT_US + 4 * SQUARE_US,
-         "dbl": 2 * PRODUCT_US + 5 * SQUARE_US}
+# Products and squares of each point operation, for its latency floor: its
+# products and squares in series at the latencies phase 1 measures (a
+# ladder's floor is its longest lane's chain of operations).
+PRODUCTS_SQUARES = {"add": (11, 5), "madd": (7, 4), "dbl": (2, 5)}
 
 
 class SmokeFailure(Exception):
@@ -175,6 +176,51 @@ def queued_ms(fn, reps):
     return cuda_ms(fn, reps)
 
 
+def fp_latency_us(lib):
+    """(product, square): microseconds of one redundant Fp product and one
+    square (csrc/g1.cuh fp_mul_lazy, fp_sqr_lazy) in one warp's dependent
+    chain of 256 (csrc/fp_mul_bench.cu in the library lib), by CUDA
+    events, mean of 3 after a warm run."""
+    import ctypes
+
+    import torch
+
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.fk_bench_lazy_chain.argtypes = [vp, vp, ci, i64, ci, vp]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    words = torch.randint(0, 1 << 32, (2, 12, 32), generator=gen, device="cuda",
+                          dtype=torch.int64)
+    words[:, 11] %= 0x1A0111EA                      # below p's top word: canonical
+    w, m = (words - ((words >> 31) << 32)).to(torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for square in (0, 1):
+        def chain():
+            rc = lib.fk_bench_lazy_chain(w.data_ptr(), m.data_ptr(), 256, 32, square, stream)
+            check(rc == 0, f"bench_lazy_chain failed: CUDA error {rc}")
+
+        chain()
+        ms, _ = cuda_ms(chain, 3)
+        out.append(ms * 1e3 / 256)
+    return tuple(out)
+
+
+def _wnaf(k, w):
+    """The width-w non-adjacent form of k >= 0, least significant digit
+    first."""
+    out = []
+    while k:
+        d = 0
+        if k & 1:
+            d = k % (1 << w)
+            d -= (1 << w) if d >= 1 << (w - 1) else 0
+            k -= d
+        out.append(d)
+        k >>= 1
+    return out
+
+
 def to_dev(p, device):
     return type(p)(*(c.to(device) for c in p))
 
@@ -228,6 +274,8 @@ def _adversarial(device):
     from fourier_tpu_torch.ops.limbs import ints_to_vec
     from fourier_tpu_torch.ops.msm_fused import pack_points
 
+    import torch_redundant as rd
+
     rng = random.Random(0x5EED)
     base = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(24)]
     n = 300  # no multiple of the 128-thread block
@@ -269,17 +317,17 @@ def _adversarial(device):
         return torch.as_tensor(ints_to_vec(list(vals), 24).astype("int64"), device=device)
 
     for op in ("add", "madd"):
-        pairs = kernels.addition_edge_lanes(rng, op == "madd")
+        pairs = rd.addition_edge_lanes(rng, op == "madd")
         a = G1Jac(*(limbs(u[k] for u, _ in pairs) for k in range(3)))
         if op == "madd":
             b = G1Aff(limbs(v[0] for _, v in pairs), limbs(v[1] for _, v in pairs),
                       torch.zeros(len(pairs), dtype=torch.bool, device=device))
-            same = sum(1 for u, v in pairs if u[2] and kernels.affine_ints(u) == v)
+            same = sum(1 for u, v in pairs if u[2] and rd.affine_ints(u) == v)
             run, plain_fn = kernels.g1_madd, kernels.g1_madd_plain
         else:
             b = G1Jac(*(limbs(v[k] for _, v in pairs) for k in range(3)))
             same = sum(1 for u, v in pairs
-                       if u[2] and v[2] and kernels.affine_ints(u) == kernels.affine_ints(v))
+                       if u[2] and v[2] and rd.affine_ints(u) == rd.affine_ints(v))
             run, plain_fn = kernels.g1_add, kernels.g1_add_plain
         before = kernels.COUNTERS.collisions()["g1_" + op]
         got = run(a, b)
@@ -318,7 +366,7 @@ def _adversarial(device):
     lanes = [(0, 0, 0), (rng.randrange(pm), rng.randrange(pm), 0), (pm - 1, 1, 0), (1, 1, 1),
              (pm - 1, pm - 1, pm - 1), (0, rng.randrange(pm), 1), (1, pm - 1, pm - 1)]
     cands = [tuple(rng.randrange(pm) for _ in range(3)) for _ in range(3000)]
-    vals = [kernels.g1_dbl_redundant(*c) for c in cands]
+    vals = [rd.g1_dbl_redundant(*c) for c in cands]
     lanes += [cands[i] for i in sorted(range(len(cands)),
                                        key=lambda i: 2 * pm - max(vals[i][-3:]))[:6]]
     lanes += [cands[i] for i in sorted(range(len(cands)), key=lambda i: 2 * pm - max(vals[i]))[:4]]
@@ -495,11 +543,13 @@ def _tree_reduction(buckets, weights, c, signed, peak):
             terms)
 
 
-def _main_path_shapes(device, peak):
+def _main_path_shapes(device, peak, op_us):
     """Kernel vs plain twin, exact and timed, at the shapes the main path
     gives each kernel: T = 2^(SCALE-1) points per row, c = the table's
     window (16 at scale 20); K5, which the scale-20 path does not run, at
-    T lanes.  Each result carries the kernel's bound on these inputs."""
+    T lanes.  Each result carries the kernel's bound on these inputs, and
+    K2's, K5's and the ladder's their latency floor from op_us (the
+    microseconds of each point operation's products in series)."""
     import torch
 
     from fourier_tpu_torch.models.piano import PianoPrecompute
@@ -572,7 +622,7 @@ def _main_path_shapes(device, peak):
         finite = int(((p.z != 0).any(0) & (q.z != 0).any(0)).sum())
         k2[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes",
                  bound(finite * PRODUCTS["add"] * MADS_PER_PRODUCT, 9 * COORD_BYTES * n, peak),
-                 OP_US["add"] * 1e-3)
+                 op_us["add"] * 1e-3)
     results["g1_add"] = k2.pop(4)
     for n, res in k2.items():
         results[f"g1_add@{n}"] = res
@@ -600,15 +650,19 @@ def _main_path_shapes(device, peak):
         finite = int(((a.z != 0).any(0) & ~q_aff.inf).sum())
         k5[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes",
                  bound(finite * PRODUCTS["madd"] * MADS_PER_PRODUCT,
-                       8 * COORD_BYTES * n + n, peak), OP_US["madd"] * 1e-3)
+                       8 * COORD_BYTES * n + n, peak), op_us["madd"] * 1e-3)
     results["g1_madd"] = k5.pop(T)
     for n, res in k5.items():
         results[f"g1_madd@{n}"] = res
     del p, q_aff, got, plain
 
     # K5's ladder at msm_naive's rows (8 and 64 points, 255-bit scalars).
-    # Work: a finite lane's nbits - 1 doublings and a mixed add a set bit;
-    # the latency floor is the longest lane's chain of them
+    # Work: a finite lane's binary chain from its scalar's leading set bit,
+    # i.e. a doubling a bit below it and a mixed add a set bit below it
+    # (the first add is a select); the latency floor is the longest lane's
+    # chain.  Beside it, the floor of a width-5 NAF ladder on the same
+    # scalars: 2P and 7 full adds for the odd multiples up to 15P, then a
+    # doubling a digit below the top and a full add a nonzero digit below it
     ladder = {}
     for n in (8, 64):
         pts = G1Aff(rand_fp(n, gen, device), rand_fp(n, gen, device),
@@ -618,10 +672,19 @@ def _main_path_shapes(device, peak):
         kernels.g1_madd_ladder(pts, sc, nbits)
         ms, got = queued_ms(lambda: kernels.g1_madd_ladder(pts, sc, nbits), 5)
         plain_ms, plain = cuda_ms(lambda: kernels.g1_madd_ladder_plain(pts, sc, nbits), 1)
-        ones = [sum(bin(int(v)).count("1") for v in col) for col in sc.T.tolist()]
-        madds = [k for k, fin in zip(ones, (~pts.inf).tolist()) if fin]
-        mads = sum((nbits - 1) * PRODUCTS["dbl"] + k * PRODUCTS["madd"] for k in madds)
-        floor_us = max((nbits - 1) * OP_US["dbl"] + k * OP_US["madd"] for k in madds)
+        ks = [sum(v << (16 * j) for j, v in enumerate(col)) & ((1 << nbits) - 1)
+              for col in sc.T.tolist()]
+        ks = [k for k, fin in zip(ks, (~pts.inf).tolist()) if fin and k]
+        chains = [(k.bit_length() - 1, bin(k).count("1") - 1) for k in ks]
+        mads = sum(d * PRODUCTS["dbl"] + a * PRODUCTS["madd"] for d, a in chains)
+        longest = max(chains, key=lambda c: c[0] * op_us["dbl"] + c[1] * op_us["madd"])
+        floor_us = longest[0] * op_us["dbl"] + longest[1] * op_us["madd"]
+        naf = [_wnaf(k, 5) for k in ks]
+        naf_us = max(op_us["dbl"] + 7 * op_us["add"] + (len(ds) - 1) * op_us["dbl"]
+                     + (sum(1 for d in ds if d) - 1) * op_us["add"] for ds in naf)
+        log(f"phase 1: g1_madd_ladder at {n} lanes x {nbits} bits: the longest lane's chain "
+            f"{longest[0]} doublings and {longest[1]} mixed adds; a width-5 NAF ladder's "
+            f"floor on these scalars {naf_us * 1e-3:.4f} ms")
         ladder[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes x {nbits} bits",
                      bound(mads * MADS_PER_PRODUCT, (5 * COORD_BYTES + 1 + 32) * n, peak),
                      floor_us * 1e-3)
@@ -637,7 +700,12 @@ def phase1_kernels(device, peak):
     _adversarial(device)
     log(f"phase 1: adversarial lanes exact; launches {kernels.COUNTERS.launches}, "
         f"doubling-branch lanes {kernels.COUNTERS.collisions()}")
-    results = _main_path_shapes(device, peak)
+    product_us, square_us = fp_latency_us(kernels.build())
+    op_us = {op: a * product_us + b * square_us for op, (a, b) in PRODUCTS_SQUARES.items()}
+    log(f"phase 1: one warp's dependent chain: a redundant product {product_us:.4f} us, a "
+        f"square {square_us:.4f} us; in series an add {op_us['add']:.4f} us, a mixed add "
+        f"{op_us['madd']:.4f} us, a doubling {op_us['dbl']:.4f} us")
+    results = _main_path_shapes(device, peak, op_us)
     for name, (err, ms, plain_ms, shape, (bound_ms, bound_by), *floor) in results.items():
         log(f"phase 1: {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})"
@@ -1069,6 +1137,7 @@ def main() -> int:
               "beside it)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    sys.path.insert(1, os.path.join(ROOT, "tests"))      # torch_redundant: the edge lanes
     t_start = time.perf_counter()
 
     def timed_phase(name, fn, *args):
@@ -1103,14 +1172,15 @@ def main() -> int:
     # `launches` is the count on the first path (in the order above) that
     # runs the kernel, named by `launches_path` (0 and null for the batched
     # K5, which no path of the port launches: msm_naive runs its ladder
-    # entry, and the reference's _madd_kernel has no serving caller either);
-    # every path's own count is
-    # in `launches_by_path`, and one workerCommit's and workerOpen's of the
-    # in-memory server in `launches_per_request`.  `shape` names the inputs
+    # entry, and the reference's msm_naive does not reach _madd_kernel
+    # either); every path's own count is in `launches_by_path`, and one
+    # workerCommit's and workerOpen's of the in-memory server in
+    # `launches_per_request`.  `shape` names the inputs
     # the numbers were taken on; `other_shapes` holds a kernel's numbers at
     # its other shapes (K4 at the tableless MSM's; K2, K5 and the ladder at
     # msm_naive's and at their throughput shapes); `latency_floor_ms`, where
-    # present, is the chain of dependent products the launch cannot beat.
+    # present, is the chain of dependent products the launch cannot beat, at
+    # the product and square latencies phase 1 measured in this run.
     first = {k: next((p for p, c in paths.items() if c[k] > 0), None) for k in KERNEL_INFO}
 
     def numbers(res):

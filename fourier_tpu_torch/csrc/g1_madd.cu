@@ -12,7 +12,9 @@
 // bit b of its scalar from nbits - 1 down to 0, doubles it (except on the
 // first bit) and mixed-adds its affine point where the bit is set and the
 // point is finite: the chain msm_naive ran as one K3 and one K5 launch a
-// bit.  Scalars are the port's canonical Fr layout, int64 [16, n], 16 bits
+// bit.  In the reference those steps are msm_naive's add_fast and dbl_fast
+// (fourier_tpu/ops/msm.py:msm_naive, reaching pallas_curve.py's
+// _add_inc_kernel and _dbl_kernel), which the ladder replaces.  Scalars are the port's canonical Fr layout, int64 [16, n], 16 bits
 // a limb.  Doubling-branch steps are counted into `collisions`.
 //
 // Both run the redundant formulas of g1.cuh (coordinates in [0, 2p), no
@@ -24,8 +26,9 @@
 // products (~300 32-bit multiply-adds each) against 5 coordinates and a
 // mask byte read and 3 coordinates written (48 bytes a coordinate).  At
 // msm_naive's shape (8 to 64 lanes) neither bound describes the work: the
-// ladder is one lane's chain of nbits - 1 doublings and a mixed add a set
-// bit, so its floor is that chain's latency.
+// ladder is one lane's chain from its scalar's leading set bit, a doubling
+// a bit below it and a mixed add a set bit below it, so its floor is the
+// longest such chain's latency.
 //
 // Occupancy: ptxas gives the batched entry 220 registers and the ladder
 // 226, no spill.  At 2^19 lanes blocks of 128 threads ran faster than 64

@@ -195,6 +195,11 @@ def jac_to_int_points(p: G1Jac) -> list:
 # -- kernel dispatch ------------------------------------------------------------
 
 def madd_fast(p: G1Jac, q: G1Aff) -> G1Jac:
+    """The counterpart of the reference's curve.madd_fast (batched K5).  No
+    serving path of the port calls it: the reference's callers, the bucket
+    accumulation and the fixed-base scan of its ops/msm.py, run through K1
+    here.  It stays for callers of the reference's interface, held against
+    it by the parity tests."""
     from . import kernels
 
     return kernels.g1_madd(p, q)

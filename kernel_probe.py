@@ -69,34 +69,12 @@ import subprocess
 import sys
 import time
 
+# the timing helpers of the smoke beside this file (imported before --tree
+# puts another checkout, with its own chip_smoke.py, first on sys.path)
+from chip_smoke import cuda_ms, fp_latency_us, log, queued_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCALE = 20
-
-
-def log(msg):
-    print(msg, flush=True)
-
-
-def cuda_ms(fn, reps):
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
-def queued_ms(fn, reps):
-    """cuda_ms with the launches queued behind ~50 ms of sleep on the card:
-    device time, without the host's time between launches."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
-    return cuda_ms(fn, reps)
 
 
 def wall_ms(fn, reps):
@@ -194,17 +172,7 @@ def fp_mul(build_dir):
     sqr_warp_ms, _ = cuda_ms(lambda: sqr_chain(w, 256, 32), 3)
 
     # the redundant product and square (no final subtraction) in one warp
-    lib.fk_bench_lazy_chain.argtypes = [vp, vp, ci, i64, ci, vp]
-    lazy_us = {}
-    for label, square in (("mul", 0), ("sqr", 1)):
-        def lazy_chain():
-            rc = lib.fk_bench_lazy_chain(w.data_ptr(), m.data_ptr(), 256, 32, square, stream)
-            if rc != 0:
-                raise RuntimeError(f"bench_lazy_chain failed: CUDA error {rc}")
-
-        lazy_chain()
-        lazy_ms, _ = cuda_ms(lazy_chain, 3)
-        lazy_us[label] = lazy_ms * 1e3 / 256
+    lazy_us = dict(zip(("mul", "sqr"), fp_latency_us(lib)))
 
     # one warp's chain of 64 dependent complete (mixed) additions of
     # random coordinates: the latency of one addition
@@ -259,7 +227,7 @@ def kernel_resources(build_dir):
     from fourier_tpu_torch.ops import kernels
 
     nvcc = kernels._nvcc()
-    srcs = [name for name in kernels._SOURCES if name != "errors.cu"]
+    srcs = [name for name in kernels._SOURCES if name not in ("errors.cu", "fp_mul_bench.cu")]
     procs = [subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                                os.path.join(kernels.CSRC, name), "-o",
                                os.path.join(build_dir, name + ".o")],

@@ -33,6 +33,8 @@ from fourier_tpu.refimpl.curve import G1_GEN, g1_add, g1_mul, g1_neg
 from fourier_tpu_torch.ops import curve as tcv
 from fourier_tpu_torch.ops import kernels
 
+import torch_redundant as rd
+
 torch.set_num_threads(1)
 
 N = 160
@@ -277,7 +279,7 @@ def _dbl_lanes(rng):
              (0, rng.randrange(p), rng.randrange(p)), (rng.randrange(p), 0, rng.randrange(p)),
              (1, 1, 1), (p - 1, p - 1, p - 1), (1, p - 1, p - 1), (p - 1, 0, 1)]
     cands = [tuple(rng.randrange(p) for _ in range(3)) for _ in range(3000)]
-    vals = [kernels.g1_dbl_redundant(*c) for c in cands]
+    vals = [rd.g1_dbl_redundant(*c) for c in cands]
     carried = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i][-3:]))
     held = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i]))
     return lanes + [cands[i] for i in carried[:4] + held[:3]]
@@ -285,7 +287,7 @@ def _dbl_lanes(rng):
 
 @pytest.mark.parametrize("repeat", [1, 3, 16])
 def test_redundant_doubling_matches_jax_dbl_n(repeat):
-    """K3's chain in its redundant form (kernels.g1_dbl_redundant, the
+    """K3's chain in its redundant form (torch_redundant.g1_dbl_redundant, the
     values csrc/g1.cuh holds) stays in [0, 2p) and, made canonical, gives
     the limbs of K3's plain twin, which equal the reference's _dbl_n limb
     for limb; on coordinates 0, 1, p - 1, identities, and lanes whose
@@ -294,7 +296,7 @@ def test_redundant_doubling_matches_jax_dbl_n(repeat):
     lanes = _dbl_lanes(random.Random(0xD8))
     state = list(lanes)
     for _ in range(repeat):
-        held = [kernels.g1_dbl_redundant(*s) for s in state]
+        held = [rd.g1_dbl_redundant(*s) for s in state]
         assert all(0 <= v < 2 * p for vs in held for v in vs)
         state = [tuple(vs[-3:]) for vs in held]
     canon = [[v - p if v >= p else v for v in s] for s in state]
@@ -311,21 +313,21 @@ def test_redundant_doubling_matches_jax_dbl_n(repeat):
 
 @pytest.mark.parametrize("op,repeat", [("add", 1), ("add", 3), ("madd", 1), ("madd", 3)])
 def test_redundant_additions_match_twins(op, repeat):
-    """The complete additions in their redundant form (kernels.
+    """The complete additions in their redundant form (torch_redundant.
     g1_add_redundant, g1_madd_redundant: the values csrc/g1.cuh holds)
     stay in [0, 2p) and, made canonical, give the limbs of K2's and K5's
     plain twins (held against the reference limb for limb above), on the
-    edge lanes of kernels.addition_edge_lanes (identities, P = Q, P = -Q,
+    edge lanes of torch_redundant.addition_edge_lanes (identities, P = Q, P = -Q,
     0, 1, p - 1, values near 2p); repeat > 1 adds Q again to the redundant sum,
     so the redundant inputs of a chain (the ladder's) are covered too."""
     p = JFP.modulus
-    pairs = kernels.addition_edge_lanes(random.Random(0xADD + repeat), op == "madd")
+    pairs = rd.addition_edge_lanes(random.Random(0xADD + repeat), op == "madd")
     state = [a for a, _ in pairs]
     for _ in range(repeat):
         if op == "madd":
-            held = [kernels.g1_madd_redundant(a, *b) for a, (_, b) in zip(state, pairs)]
+            held = [rd.g1_madd_redundant(a, *b) for a, (_, b) in zip(state, pairs)]
         else:
-            held = [kernels.g1_add_redundant(a, b) for a, (_, b) in zip(state, pairs)]
+            held = [rd.g1_add_redundant(a, b) for a, (_, b) in zip(state, pairs)]
         assert all(0 <= v < 2 * p for vs in held for v in vs)
         state = [tuple(vs[-3:]) for vs in held]
 
@@ -364,11 +366,11 @@ def test_redundant_ladder_matches_its_twin(nbits):
         acc = (0, 0, 0)
         for k, b in enumerate(reversed(range(nbits))):
             if k:
-                held = kernels.g1_dbl_redundant(*acc)
+                held = rd.g1_dbl_redundant(*acc)
                 assert all(0 <= v < 2 * p for v in held)
                 acc = tuple(held[-3:])
             if pt is not None and (s >> b) & 1:
-                held = kernels.g1_madd_redundant(acc, x, y)
+                held = rd.g1_madd_redundant(acc, x, y)
                 assert all(0 <= v < 2 * p for v in held)
                 acc = tuple(held[-3:])
         out.append([v % p for v in acc])

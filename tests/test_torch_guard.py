@@ -4,8 +4,9 @@ cannot do.
 - A fresh interpreter imports every fourier_tpu_torch module, commits a
   scale-4 row on the CPU and finds no jax and no fourier_tpu module
   loaded.
-- No port source (nor chip_smoke.py, nor the card-only kernel tests)
-  imports jax or any fourier_tpu module other than fourier_tpu_torch.
+- No port source (nor chip_smoke.py, kernel_probe.py, the card-only kernel
+  tests or their redundant-form models) imports jax or any fourier_tpu
+  module other than fourier_tpu_torch.
 - `run` refuses a CUDA device when none is visible; `setup` refuses what
   the reference's can_proceed refuses, with exit code 1.
 - chip_smoke.py exits non-zero with no result line when no card is seen.
@@ -63,8 +64,9 @@ def test_slice_loads_no_jax():
 def test_port_sources_never_name_jax():
     # fourier_tpu\b does not match fourier_tpu_torch: no word boundary before "_"
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fourier_tpu)\b", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tests", "test_torch_kernels.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_probe.py"),
+             os.path.join(ROOT, "tests", "test_torch_kernels.py"),
+             os.path.join(ROOT, "tests", "torch_redundant.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     for path in files:

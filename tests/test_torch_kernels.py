@@ -37,6 +37,8 @@ from fourier_tpu_torch.ops.field import FP
 from fourier_tpu_torch.ops import msm as tmsm
 from fourier_tpu_torch.ops import msm_fused as tmf
 
+import torch_redundant as rd
+
 torch.set_num_threads(1)
 
 
@@ -222,7 +224,7 @@ def _dbl_lanes(rng):
              (p - 1, p - 1, p - 1), (0, rng.randrange(p), 1), (1, p - 1, p - 1),
              (rng.randrange(p), 0, rng.randrange(p))]
     cands = [tuple(rng.randrange(p) for _ in range(3)) for _ in range(3000)]
-    vals = [kernels.g1_dbl_redundant(*c) for c in cands]
+    vals = [rd.g1_dbl_redundant(*c) for c in cands]
     carried = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i][-3:]))
     held = sorted(range(len(cands)), key=lambda i: 2 * p - max(vals[i]))
     return lanes + [cands[i] for i in carried[:6] + held[:4]]
@@ -249,19 +251,19 @@ def _limbs(vals):
 def test_additions_on_edge_lanes_match_twins(cuda_device, op):
     """K2 and K5 (redundant complete additions, canonical at the store)
     against their canonical twins limb for limb on the edge lanes of
-    kernels.addition_edge_lanes, with the same-point lanes counted; then on the 160-lane
+    torch_redundant.addition_edge_lanes, with the same-point lanes counted; then on the 160-lane
     curve plan against refimpl, with its doubling lanes counted."""
-    pairs = kernels.addition_edge_lanes(random.Random(0xADD), op == "madd")
+    pairs = rd.addition_edge_lanes(random.Random(0xADD), op == "madd")
     tp = tcv.G1Jac(*(_limbs(a[k] for a, _ in pairs) for k in range(3)))
     if op == "madd":
         tq = tcv.G1Aff(_limbs(b[0] for _, b in pairs), _limbs(b[1] for _, b in pairs),
                        torch.zeros(len(pairs), dtype=torch.bool))
-        same = sum(1 for a, b in pairs if a[2] and kernels.affine_ints(a) == b)
+        same = sum(1 for a, b in pairs if a[2] and rd.affine_ints(a) == b)
         run, plain = kernels.g1_madd, kernels.g1_madd_plain
     else:
         tq = tcv.G1Jac(*(_limbs(b[k] for _, b in pairs) for k in range(3)))
         same = sum(1 for a, b in pairs
-                   if a[2] and b[2] and kernels.affine_ints(a) == kernels.affine_ints(b))
+                   if a[2] and b[2] and rd.affine_ints(a) == rd.affine_ints(b))
         run, plain = kernels.g1_add, kernels.g1_add_plain
     name = "g1_" + op
     before = kernels.COUNTERS.collisions()[name]
