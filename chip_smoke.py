@@ -3,7 +3,7 @@
 
 Run from the root of the repository:
 
-    python3 chip_smoke.py            # the full run, scale 20 / machines 1
+    python3 chip_smoke.py            # the full run at scale 20
 
 It takes no arguments: the main path always runs at SCALE.
 
@@ -51,13 +51,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    pinned transcript's rows (8 points each) without tables take msm_naive
    (K5's ladder, then K2), and so does a 64-point MSM held against
    refimpl: each msm_naive call must launch the ladder once, K3 and the
-   batched K5 never and K2 at most ceil(log2 n) times.
+   batched K5 never and K2 at most ceil(log2 n) times.  Then the
+   univariate KZG (models/univariate.py) over that backend's X-side SRS:
+   a polynomial of T = 2^19 coefficients (the tableless MSM) and one of 64
+   (msm_naive), each committed, opened, verified on the host, and a wrong
+   value rejected.
+7. The distributed round through the port's own client
+   (runtime/client.py, test_routine's flow) at scale 20 / machines_scale
+   2: Client.start spawns `python -m fourier_tpu_torch run --device cuda`
+   (M = 4 workers, T = 2^18 coefficients a row, tables in memory); each
+   row's inverse FFT, workerCommit, workerOpen and workerVerify, then
+   masterCommit, masterOpen and masterVerify; every proof must verify and
+   a tampered z must be rejected.  Client latency per method (median and
+   spread) and the server's KERNEL_LAUNCHES per request are printed.
+8. G2 on the card (ops/fp2.py, plain torch): g2_scalar_mul over 1,024
+   lanes of random scalars, timed, 8 lanes held against refimpl.
 
-The main path is phases 4 to 6, four paths: the in-memory server, the
-file-loaded server, the tableless MSM at T = 2^19 and msm_naive at scale
-4.  Launches are counted from 0 before each path and read after it, and
-reported per path; a workerCommit of the in-memory server must launch no
-K2, at most 2 tree kernels and K4 once.  The line before the last is the kernels' JSON record;
+The main path is phases 4 to 7, seven paths: the in-memory server, the
+file-loaded server, the tableless MSM at T = 2^19, msm_naive at scale 4,
+the univariate KZG at T = 2^19 and at 64 coefficients, and the client's
+round at scale 20 / machines 2.  Launches are counted from 0 before each
+path and read after it (a server's are its own counts of its run), and
+reported per path; a workerCommit of the in-memory servers must launch
+no K2, at most 2 tree kernels and K4 once.  The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -684,7 +700,7 @@ def _main_path_shapes(device, peak, op_us):
                      + (sum(1 for d in ds if d) - 1) * op_us["add"] for ds in naf)
         log(f"phase 1: g1_madd_ladder at {n} lanes x {nbits} bits: the longest lane's chain "
             f"{longest[0]} doublings and {longest[1]} mixed adds; a width-5 NAF ladder's "
-            f"floor on these scalars {naf_us * 1e-3:.4f} ms")
+            f"floor on these scalars {naf_us * 1e-3:.4g} ms")
         ladder[n] = (max_abs_err(got, plain), ms, plain_ms, f"{n} lanes x {nbits} bits",
                      bound(mads * MADS_PER_PRODUCT, (5 * COORD_BYTES + 1 + 32) * n, peak),
                      floor_us * 1e-3)
@@ -708,8 +724,8 @@ def phase1_kernels(device, peak):
     results = _main_path_shapes(device, peak, op_us)
     for name, (err, ms, plain_ms, shape, (bound_ms, bound_by), *floor) in results.items():
         log(f"phase 1: {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})"
-            + (f", latency floor {floor[0]:.4f} ms" if floor else "") + f", max_abs_err {err}")
+            f"bound {bound_ms:.4g} ms ({bound_by})"
+            + (f", latency floor {floor[0]:.4g} ms" if floor else "") + f", max_abs_err {err}")
         check(err == 0, f"{name} differs from its plain twin at main-path shapes")
     return results
 
@@ -1126,6 +1142,189 @@ def phase6_tableless(b, limbs):
     return big, naive
 
 
+def phase6_univariate(b):
+    """UnivariateKZG over the scale-20 backend's X-side SRS: a polynomial of
+    T = 2^(SCALE-1) coefficients through the tableless MSM and one of 64
+    through msm_naive, each committed, opened and verified on the host
+    (a wrong value must be rejected).  Returns each path's launches."""
+    import torch
+
+    from fourier_tpu_torch.constants import R
+    from fourier_tpu_torch.models.univariate import UnivariateKZG
+    from fourier_tpu_torch.ops import curve as cv
+    from fourier_tpu_torch.ops.kernels import COUNTERS
+    from fourier_tpu_torch.refimpl.curve import g1_msm
+
+    kzg = UnivariateKZG(b.settings, b.fft)
+    rng = random.Random(19)
+    x = rng.randrange(R)
+    paths = {}
+    for label, n in ((f"univariate_T2^{SCALE - 1}", b.fft.T), ("univariate_64", 64)):
+        coeffs = [rng.randrange(R) for _ in range(n)]
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        com = kzg.commit_to_poly(coeffs)
+        t1 = time.perf_counter()
+        y, proof = kzg.compute_proof_single(coeffs, x)
+        t2 = time.perf_counter()
+        launches = paths[label] = dict(COUNTERS.launches)
+        check(kzg.verify_proof_single(com, x, y, proof), f"{label}: the proof was rejected")
+        check(not kzg.verify_proof_single(com, x, (y + 1) % R, proof),
+              f"{label}: a wrong value was accepted")
+        if n <= 64:
+            points = cv.jac_to_int_points(cv.from_affine(kzg._tau_powers(n)))
+            check(com == g1_msm(points, coeffs), f"{label}: the commitment differs from refimpl")
+            check(launches["g1_madd_ladder"] == 2 and launches["accumulate"] == 0,
+                  f"{label}: launches {launches} (expected the ladder twice, K1 never)")
+        else:
+            check(all(launches[k] > 0 for k in ("accumulate", "g1_tree_reduce", "horner_2k"))
+                  and launches["g1_madd_ladder"] == 0,
+                  f"{label}: launches {launches} (expected K1, the tree kernel and K4, no "
+                  f"ladder)")
+        log(f"phase 6: {label}: commit {(t1 - t0) * 1e3:.3f} ms, open {(t2 - t1) * 1e3:.3f} ms "
+            f"(in process, host quotient included), verified and a wrong value rejected; "
+            f"launches {launches}")
+    return paths
+
+
+# -- phase 7 ------------------------------------------------------------------------
+
+def _read_server_log(path):
+    """(lines, KERNEL_LAUNCHES records) of a server's log file so far."""
+    with open(path) as fh:
+        lines = fh.read().split("\n")[:-1]          # the last line may be partly written
+    return lines, [json.loads(ln.split("KERNEL_LAUNCHES ", 1)[1]) for ln in lines
+                   if "KERNEL_LAUNCHES " in ln]
+
+
+def phase7_client_round(card, machines_scale=2):
+    """test_routine's flow through the port's own client: Client.start
+    spawns `python -m fourier_tpu_torch run --scale SCALE --machines-scale
+    machines_scale --device cuda` (tables generated in memory), then the
+    random polynomial, each row's inverse FFT, workerCommit, workerOpen and
+    workerVerify for each of the M workers, masterCommit, masterOpen and
+    masterVerify, and a tampered z that must be rejected; the server stops
+    in `finally`.  Returns (launch totals of the server's run, launches of
+    each device method's first request)."""
+    import statistics
+
+    from fourier_tpu_torch.constants import R
+    from fourier_tpu_torch.refimpl.field import fr_from_bytes, fr_to_bytes
+    from fourier_tpu_torch.runtime import client as cl
+    from fourier_tpu_torch.runtime import wire
+
+    label = f"phase 7 (scale {SCALE} / machines {machines_scale})"
+    M, T = 1 << machines_scale, 1 << (SCALE - machines_scale)
+    d = tempfile.mkdtemp(prefix=".smoke-files-", dir=ROOT)
+    log_path = os.path.join(d, "server.log")
+    times, per_request = {}, {}
+    try:
+        with open(log_path, "w") as out:
+            rpc = cl.Client(host="127.0.0.1", port=_free_port(), device="cuda", output=out)
+            try:
+                t0 = time.perf_counter()
+                check(rpc.start(scale=SCALE, machines_scale=machines_scale, timeout=900) is None,
+                      f"{label}: the client's server did not start")
+                start_s = time.perf_counter() - t0
+                lines, launches = _read_server_log(log_path)
+                setup_line = next(ln for ln in lines if "setup took" in ln)
+                log(f"{label}: Client.start returned after {start_s:.3f} s (process start, "
+                    f"setup, warm-up commit); {setup_line.split('INFO fourier_tpu: ')[-1]}; "
+                    f"launches at setup {launches[0]['launches']}; {card}")
+
+                def call(method, fn, *args, device=False):
+                    n = len(_read_server_log(log_path)[1])
+                    t = time.perf_counter()
+                    res = fn(rpc, *args)
+                    times.setdefault(method, []).append(time.perf_counter() - t)
+                    if device:
+                        deadline = time.monotonic() + 30
+                        while len(recs := _read_server_log(log_path)[1]) <= n:
+                            check(time.monotonic() < deadline,
+                                  f"{label}: no launch counts logged for {method}")
+                            time.sleep(0.05)
+                        per_request.setdefault(method, recs[-1]["launches"])
+                    return res
+
+                f = call("randomPoly", cl.random_poly)
+                check(len(f) == M and all(len(row) == T for row in f),
+                      f"{label}: randomPoly gave {len(f)} rows")
+                alpha, beta = cl.random_point(rpc), cl.random_point(rpc)
+                coms, evals, proofs = [], [], []
+                for i in range(M):
+                    row = call("fft", cl.fft, f[i], True, True, device=True)
+                    com = call("workerCommit", cl.worker_commit, i, row, device=True)
+                    y, pi = call("workerOpen", cl.worker_open, i, row, alpha, device=True)
+                    check(call("workerVerify", cl.worker_verify, i, pi, alpha, y, com) is True,
+                          f"{label}: worker {i}: proof rejected")
+                    coms.append(com)
+                    evals.append(y)
+                    proofs.append(pi)
+                mc = call("masterCommit", cl.master_commit, coms)
+                z, pi0, pi1 = call("masterOpen", cl.master_open, evals, proofs, beta,
+                                   device=True)
+                check(call("masterVerify", cl.master_verify, mc, beta, alpha, z, pi0, pi1)
+                      is True, f"{label}: the master proof was rejected")
+                bad_z = wire.b64_encode(fr_to_bytes((fr_from_bytes(wire.b64_decode(z)) + 1) % R))
+                check(cl.master_verify(rpc, mc, beta, alpha, bad_z, pi0, pi1) is False,
+                      f"{label}: a tampered z was accepted")
+            finally:
+                rpc.stop()
+        lines, launches = _read_server_log(log_path)
+    finally:
+        for ln in _read_server_log(log_path)[0] if os.path.exists(log_path) else ():
+            print(f"[server] {ln}", file=sys.stderr)
+        shutil.rmtree(d, ignore_errors=True)
+    for method, ts in times.items():
+        ms = [t * 1e3 for t in ts]
+        log(f"{label}: {method} client latency median {statistics.median(ms):.3f} ms, "
+            f"min {min(ms):.3f}, max {max(ms):.3f} over {len(ms)} requests")
+    for method, counts in per_request.items():
+        log(f"{label}: KERNEL_LAUNCHES of the first {method}: {counts}")
+    c = per_request["workerCommit"]
+    check(c["accumulate"] == 1 and 0 < c["g1_tree_reduce"] <= 2 and c["horner_2k"] == 1
+          and c["g1_add"] == 0, f"{label}: a workerCommit launched {c}")
+    totals = dict.fromkeys(KERNEL_INFO, 0)
+    for rec in launches:
+        for k, v in rec["launches"].items():
+            totals[k] += v
+    check(all(totals[k] > 0 for k in ("accumulate", "g1_tree_reduce", "g1_dbl", "horner_2k")),
+          f"{label}: the run launched {totals}")
+    log(f"{label}: {M} workers and the master verified, a tampered z rejected; kernel "
+        f"launches {totals}")
+    return totals, per_request
+
+
+# -- phase 8 ------------------------------------------------------------------------
+
+def phase8_g2(card, n=1024):
+    """g2_scalar_mul (ops/fp2.py, plain torch: the JAX module reaches no
+    Pallas kernel) over n lanes of the G2 generator with random scalars,
+    timed; 8 lanes held against refimpl."""
+    import torch
+
+    from fourier_tpu_torch.ops import fp2
+    from fourier_tpu_torch.ops.curve import G1Jac
+    from fourier_tpu_torch.refimpl.curve import G2_GEN, g2_mul
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    sc = rand_fr(n, gen, "cuda")
+    p = fp2.g2_generator_jac((n,), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fp2.g2_scalar_mul(p, sc)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ks = [sum(v << (16 * j) for j, v in enumerate(col)) for col in sc[:, :8].T.tolist()]
+    got = fp2.g2_jac_to_int_points(G1Jac(*(c[..., :8] for c in out)))
+    want = [((q[0].c0, q[0].c1), (q[1].c0, q[1].c1)) for q in (g2_mul(G2_GEN, k) for k in ks)]
+    check(got == want, "g2_scalar_mul on the card differs from refimpl")
+    log(f"phase 8: g2_scalar_mul over {n} lanes x 256 bits on the card {dt:.3f} s (plain "
+        f"torch); 8 lanes equal refimpl; {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1155,7 +1354,11 @@ def main() -> int:
         served, setup_s, per_request = timed_phase("phase 4", phase4_main_path, card)
         from_files, backend, limbs = timed_phase("phase 5", phase5_files, card, setup_s)
         tableless, naive = timed_phase("phase 6", phase6_tableless, backend, limbs)
+        univariate = timed_phase("phase 6 (univariate)", phase6_univariate, backend)
         del backend
+        torch.cuda.empty_cache()
+        client_round, client_requests = timed_phase("phase 7", phase7_client_round, card)
+        timed_phase("phase 8", phase8_g2, card)
         check(not any(m == "jax" or m.startswith("jax.") or m == "fourier_tpu"
                       or m.startswith("fourier_tpu.") for m in sys.modules),
               "the port imported jax or the JAX package")
@@ -1163,19 +1366,23 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {"server_in_memory_s20": served, "server_from_files_s20": from_files,
-             "tableless_T2^19": tableless, "msm_naive_s4": naive}
+             "tableless_T2^19": tableless, "msm_naive_s4": naive, **univariate,
+             "client_round_s20_m2": client_round}
+    per_request = {f"{m} ({phase})": c for phase, requests in (("phase 4", per_request),
+                                                               ("phase 7", client_requests))
+                   for m, c in requests.items()}
     for path, counts in paths.items():
         log(f"launches on path {path}: {dict((k, counts[k]) for k in KERNEL_INFO)}")
     for method, counts in per_request.items():
-        log(f"launches per {method} (phase 4): {dict((k, counts[k]) for k in KERNEL_INFO)}")
+        log(f"launches per {method}: {dict((k, counts[k]) for k in KERNEL_INFO)}")
     log(f"whole run {time.perf_counter() - t_start:.3f} s")
     # `launches` is the count on the first path (in the order above) that
     # runs the kernel, named by `launches_path` (0 and null for the batched
     # K5, which no path of the port launches: msm_naive runs its ladder
     # entry, and the reference's msm_naive does not reach _madd_kernel
-    # either); every path's own count is in `launches_by_path`, and one
-    # workerCommit's and workerOpen's of the in-memory server in
-    # `launches_per_request`.  `shape` names the inputs
+    # either); every path's own count is in `launches_by_path`, and the
+    # first request of each device method of the phase 4 and phase 7
+    # servers in `launches_per_request`.  `shape` names the inputs
     # the numbers were taken on; `other_shapes` holds a kernel's numbers at
     # its other shapes (K4 at the tableless MSM's; K2, K5 and the ladder at
     # msm_naive's and at their throughput shapes); `latency_floor_ms`, where

@@ -1,12 +1,14 @@
-"""Carry a setup and its window tables from the JAX package across.
+"""Carry setups, window tables and point batches from the JAX package across.
 
 The reference's ``PianoSettings`` and ``PianoPrecompute`` hold their
-point batches as ``uint32[24, ...]`` Montgomery limb arrays; the port
-holds the same limbs as int64 tensors.  These functions take any object
-with the reference's attribute names whose point batches are array-likes
-(``x``, ``y``, ``inf``) and build the port's objects on `device`, so
-both packages commit with the same SRS and the same tables.  Nothing
-here imports jax: callers pass numpy arrays.
+point batches as ``uint32[24, ...]`` Montgomery limb arrays, and its
+``ops.fp2`` holds Fp2 elements as ``uint32[24, 2, ...]`` (limb axis, then
+the component axis); the port holds the same limbs, in the same layout,
+as int64 tensors.  These functions take any object with the reference's
+attribute names whose point batches are array-likes (``x``, ``y``,
+``z`` or ``inf``) and build the port's objects on `device`, so both
+packages compute on the same points.  Nothing here imports jax: callers
+pass numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,16 +17,26 @@ import numpy as np
 import torch
 
 from .models.piano import PianoPrecompute, PianoSettings
-from .ops.curve import G1Aff
+from .ops.curve import G1Aff, G1Jac
+
+
+def limbs_from_array(a, device="cuda") -> torch.Tensor:
+    """A uint32 limb array (Fp [L, *batch] or Fp2 [L, 2, *batch]) -> the
+    int64 tensor of the same limbs and shape."""
+    return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
 
 
 def affine_from_arrays(points, device="cuda") -> G1Aff:
-    """(x, y, inf) array-likes -> a G1Aff of int64 limb tensors."""
-    return G1Aff(
-        torch.as_tensor(np.asarray(points.x).astype(np.int64), device=device),
-        torch.as_tensor(np.asarray(points.y).astype(np.int64), device=device),
-        torch.as_tensor(np.asarray(points.inf).astype(bool), device=device),
-    )
+    """(x, y, inf) array-likes -> a G1Aff of int64 limb tensors (G1, or G2
+    with Fp2 coordinates)."""
+    return G1Aff(limbs_from_array(points.x, device), limbs_from_array(points.y, device),
+                 torch.as_tensor(np.asarray(points.inf).astype(bool), device=device))
+
+
+def jac_from_arrays(points, device="cuda") -> G1Jac:
+    """(x, y, z) array-likes -> a G1Jac of int64 limb tensors (G1, or G2
+    with Fp2 coordinates)."""
+    return G1Jac(*(limbs_from_array(c, device) for c in (points.x, points.y, points.z)))
 
 
 def precompute_from_arrays(src, device="cuda") -> PianoPrecompute:

@@ -122,6 +122,12 @@ class PianoFFTSettings:
     def fft_left(self, values, inverse: bool) -> list[int]:
         return self.fft(values, True, inverse)
 
+    def fft_right(self, values, inverse: bool) -> list[int]:
+        return self.fft(values, False, inverse)
+
+    def left_lagrange_poly(self, j: int) -> list[int]:
+        return rpoly.lagrange_poly(j, self.t)
+
     def right_lagrange_poly(self, i: int) -> list[int]:
         return rpoly.lagrange_poly(i, self.m)
 
@@ -178,21 +184,29 @@ class PianoPrecompute:
 
     @staticmethod
     def generate(settings: PianoSettings, c: int | None = None) -> "PianoPrecompute":
-        t_len = settings.u.x.shape[2]
+        u = settings.u
+        L, m, t_len = u.x.shape
         c = c or PianoPrecompute.window_for(t_len)
-
-        def expand(points: G1Aff):
-            n = points.x.shape[-1]
-            n_windows = -(-256 // c)
-            if n * n_windows > PianoPrecompute.MAX_TABLE_POINTS:
-                logger.warning(
-                    "precompute: table of %d points (%d windows x %d) exceeds "
-                    "MAX_TABLE_POINTS=%d; this row serves tableless",
-                    n * n_windows, n_windows, n, PianoPrecompute.MAX_TABLE_POINTS)
-                return None
-            return msm_mod.bgmw_expand(points, c)
-
-        u_rows = [expand(settings.u_row(i)) for i in range(settings.u.x.shape[1])]
+        n_windows = -(-256 // c)
+        if t_len * n_windows > PianoPrecompute.MAX_TABLE_POINTS:
+            logger.warning(
+                "precompute: table of %d points (%d windows x %d) exceeds "
+                "MAX_TABLE_POINTS=%d; every row serves tableless",
+                t_len * n_windows, n_windows, t_len, PianoPrecompute.MAX_TABLE_POINTS)
+            return PianoPrecompute(c=c, u_rows=[None] * m)
+        # Rows are expanded together, up to SETUP_CHUNK points at a time:
+        # the same limbs as row by row, in fewer launches and tensor ops
+        # where rows are short (M = 128 rows of 2 points at scale 8).
+        per = max(1, SETUP_CHUNK // t_len)
+        u_rows = []
+        for lo in range(0, m, per):
+            k = min(per, m - lo)
+            flat = msm_mod.bgmw_expand(G1Aff(u.x[:, lo:lo + k].reshape(L, k * t_len),
+                                             u.y[:, lo:lo + k].reshape(L, k * t_len),
+                                             u.inf[lo:lo + k].reshape(k * t_len)), c)
+            # lane w*k*T + i*T + j of the expansion is lane w*T + j of row lo + i
+            u_rows += [G1Aff(*(a.unflatten(-1, (n_windows, k, t_len))[..., i, :].flatten(-2)
+                               for a in flat)) for i in range(k)]
         return PianoPrecompute(c=c, u_rows=u_rows)
 
     def packed_row(self, i: int) -> torch.Tensor:
@@ -338,6 +352,12 @@ class PianoBackend:
 
     # -- utils ---------------------------------------------------------------
 
+    def random_bivariate_polynomial(self) -> list[list[int]]:
+        """M rows of T uniform values mod R, as Python ints (the list form
+        of random_bivariate_limbs)."""
+        return [[int.from_bytes(os.urandom(32), "big") % R for _ in range(self.fft.T)]
+                for _ in range(self.fft.M)]
+
     def random_bivariate_limbs(self) -> np.ndarray:
         """[M, FR_LIMBS, T] canonical rows: uniform 256-bit values mod R,
         reduced by a Montgomery round trip."""
@@ -348,6 +368,9 @@ class PianoBackend:
 
     def random_point(self) -> int:
         return int.from_bytes(os.urandom(32), "big") % R
+
+    def evaluate(self, coeffs: list[int], x: int) -> int:
+        return rpoly.poly_eval(coeffs, x)
 
     def evaluate_limbs(self, limbs: np.ndarray, x: int) -> int:
         """f(x) over canonical [FR_LIMBS, n] coefficient limbs; small

@@ -4,9 +4,11 @@ Port of ``fourier_tpu.ops.curve``.  A point batch is ``G1Jac(x, y, z)`` of
 int64 ``[24, *batch]`` Montgomery limbs with the identity at z == 0, or
 ``G1Aff(x, y, inf)`` with an explicit infinity mask.  ``dbl``/``add``/
 ``madd`` are the complete formulas of the reference (dbl-2009-l,
-add-2007-bl, madd-2007-bl) in plain tensor ops; ``dbl_fast``/``add_fast``/
-``madd_fast`` take the hand-written kernels of ``ops.kernels`` on a CUDA
-tensor and these plain formulas on a CPU one.
+add-2007-bl, madd-2007-bl) in plain tensor ops, over the field ``f`` they
+are given (``FP`` for G1; ``ops.fp2.FP2`` runs them for G2, as the
+reference's ``_dbl_impl``/``_add_impl``/``_madd_impl`` do);
+``dbl_fast``/``add_fast``/``madd_fast`` take the hand-written kernels of
+``ops.kernels`` on a CUDA tensor and these plain formulas on a CPU one.
 """
 
 from __future__ import annotations
@@ -44,14 +46,13 @@ def is_identity(p: G1Jac):
     return FP.is_zero(p.z)
 
 
-def _where(mask, a: G1Jac, b: G1Jac) -> G1Jac:
-    return G1Jac(FP.select(mask, a.x, b.x), FP.select(mask, a.y, b.y),
-                 FP.select(mask, a.z, b.z))
+def _where(mask, a: G1Jac, b: G1Jac, f=FP) -> G1Jac:
+    return G1Jac(f.select(mask, a.x, b.x), f.select(mask, a.y, b.y),
+                 f.select(mask, a.z, b.z))
 
 
-def dbl(p: G1Jac) -> G1Jac:
+def dbl(p: G1Jac, f=FP) -> G1Jac:
     """Point doubling; the identity maps to the identity (z3 = 2yz)."""
-    f = FP
     a = f.square(p.x)
     b = f.square(p.y)
     c = f.square(b)
@@ -66,16 +67,15 @@ def dbl(p: G1Jac) -> G1Jac:
     return G1Jac(x3, y3, z3)
 
 
-def _doubling_branch(same, p: G1Jac, out: G1Jac) -> G1Jac:
+def _doubling_branch(same, p: G1Jac, out: G1Jac, f=FP) -> G1Jac:
     """dbl(p) on the lanes where the addition met the same finite point,
     `out` elsewhere (lanes with an identity operand are selected after);
     the doubling is computed only when some lane takes it."""
-    return _where(same, dbl(p), out) if bool(same.any()) else out
+    return _where(same, dbl(p, f), out, f) if bool(same.any()) else out
 
 
-def add(p: G1Jac, q: G1Jac) -> G1Jac:
+def add(p: G1Jac, q: G1Jac, f=FP) -> G1Jac:
     """Complete Jacobian + Jacobian addition via selects."""
-    f = FP
     z1z1 = f.square(p.z)
     z2z2 = f.square(q.z)
     u1 = f.mul(p.x, z2z2)
@@ -96,13 +96,12 @@ def add(p: G1Jac, q: G1Jac) -> G1Jac:
     # inverse pair, z3 = 0 falls out of the formula.
     p_inf, q_inf = f.is_zero(p.z), f.is_zero(q.z)
     same = f.is_zero(h) & f.is_zero(rr) & ~p_inf & ~q_inf
-    out = _doubling_branch(same, p, G1Jac(x3, y3, z3))
-    return _where(p_inf, q, _where(q_inf, p, out))
+    out = _doubling_branch(same, p, G1Jac(x3, y3, z3), f)
+    return _where(p_inf, q, _where(q_inf, p, out, f), f)
 
 
-def madd(p: G1Jac, q: G1Aff) -> G1Jac:
+def madd(p: G1Jac, q: G1Aff, f=FP) -> G1Jac:
     """Complete mixed addition (q affine, z = 1)."""
-    f = FP
     z1z1 = f.square(p.z)
     u2 = f.mul(q.x, z1z1)
     s2 = f.mul(f.mul(q.y, p.z), z1z1)
@@ -120,10 +119,10 @@ def madd(p: G1Jac, q: G1Aff) -> G1Jac:
     z3 = f.sub(f.sub(f.square(f.add(p.z, h)), z1z1), hh)
     p_inf = f.is_zero(p.z)
     out = _doubling_branch(f.is_zero(h) & f.is_zero(rr) & ~p_inf & ~q.inf, p,
-                           G1Jac(x3, y3, z3))
+                           G1Jac(x3, y3, z3), f)
     one = f.broadcast_const("one_mont", p.z.shape[1:], p.z.device)
-    out = _where(p_inf, G1Jac(q.x, q.y, one), out)
-    return _where(q.inf, p, out)
+    out = _where(p_inf, G1Jac(q.x, q.y, one), out, f)
+    return _where(q.inf, p, out, f)
 
 
 def to_affine(p: G1Jac) -> G1Aff:

@@ -1,9 +1,10 @@
 """The port stays free of JAX and of the JAX package, and refuses what it
 cannot do.
 
-- A fresh interpreter imports every fourier_tpu_torch module, commits a
-  scale-4 row on the CPU and finds no jax and no fourier_tpu module
-  loaded.
+- A fresh interpreter imports every fourier_tpu_torch module (the client,
+  bipoly, univariate and fp2 too), commits a scale-4 row and a constant
+  univariate polynomial on the CPU and finds no jax and no fourier_tpu
+  module loaded.
 - No port source (nor chip_smoke.py, kernel_probe.py, the card-only kernel
   tests or their redundant-form models) imports jax or any fourier_tpu
   module other than fourier_tpu_torch.
@@ -35,12 +36,15 @@ import torch
 torch.set_num_threads(1)
 import fourier_tpu_torch, fourier_tpu_torch.convert, fourier_tpu_torch.ops.serialize
 import fourier_tpu_torch.runtime.cli, fourier_tpu_torch.runtime.server, fourier_tpu_torch.runtime.io
+import fourier_tpu_torch.runtime.client, fourier_tpu_torch.models.bipoly, fourier_tpu_torch.ops.fp2
+from fourier_tpu_torch.models.univariate import UnivariateKZG
 from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                             PianoPrecompute, generate_trusted_setup)
 fft = PianoFFTSettings(4, 1, "cpu")
 settings = generate_trusted_setup(fft, (b"\\x2a" * 32, b"\\x2b" * 32))
 settings.precompute = PianoPrecompute.generate(settings)
 com = PianoBackend(fft, settings).worker_commit(0, [1, 4, 7, 10, 13, 16, 19, 22])
+assert UnivariateKZG(settings, fft).commit_to_poly([1]) == settings.g
 loaded = sorted(m for m in sys.modules if m in ("jax", "fourier_tpu")
                 or m.startswith(("jax.", "jaxlib", "fourier_tpu.")))
 print("COMMIT", com[0] % 1000, "JAX", loaded)
