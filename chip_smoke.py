@@ -55,7 +55,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    univariate KZG (models/univariate.py) over that backend's X-side SRS:
    a polynomial of T = 2^19 coefficients (the tableless MSM) and one of 64
    (msm_naive), each committed, opened, verified on the host, and a wrong
-   value rejected.
+   value rejected.  Then the round as one call (parallel/prove_sharded.py)
+   on that backend's two rows: tabled (its c = 16 tables reused) and
+   tableless, each byte-equal to the per-request round of the same rows,
+   verified, a wrong z rejected, and timed beside it.
 7. The distributed round through the port's own client
    (runtime/client.py, test_routine's flow) at scale 20 / machines_scale
    2: Client.start spawns `python -m fourier_tpu_torch run --device cuda`
@@ -67,9 +70,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. G2 on the card (ops/fp2.py, plain torch): g2_scalar_mul over 1,024
    lanes of random scalars, timed, 8 lanes held against refimpl.
 
-The main path is phases 4 to 7, seven paths: the in-memory server, the
+The main path is phases 4 to 7, nine paths: the in-memory server, the
 file-loaded server, the tableless MSM at T = 2^19, msm_naive at scale 4,
-the univariate KZG at T = 2^19 and at 64 coefficients, and the client's
+the univariate KZG at T = 2^19 and at 64 coefficients, the round as one
+call at scale 20 / machines 1, tabled and tableless, and the client's
 round at scale 20 / machines 2.  Launches are counted from 0 before each
 path and read after it (a server's are its own counts of its run), and
 reported per path; a workerCommit of the in-memory servers must launch
@@ -1188,6 +1192,87 @@ def phase6_univariate(b):
     return paths
 
 
+def phase6_round(b, limbs, card):
+    """The round as one call (parallel/prove_sharded.py) on phase 5's
+    backend at scale 20 / machines_scale 1 (M = 2 rows of T = 2^19): tabled
+    (the backend's c = 16 tables reused, so no K3) and tableless, each
+    byte-equal to the per-request round of the same rows and verified, a
+    wrong z rejected.  Returns each path's launches."""
+    import numpy as np
+    import torch
+
+    from fourier_tpu_torch.constants import R
+    from fourier_tpu_torch.convert import prove_outputs_to_ints
+    from fourier_tpu_torch.ops.kernels import COUNTERS
+    from fourier_tpu_torch.parallel import prove_sharded as ps
+    from fourier_tpu_torch.refimpl.curve import g1_to_bytes
+    from fourier_tpu_torch.refimpl.field import fr_to_bytes
+
+    M, T = b.fft.M, b.fft.T
+    rng = np.random.default_rng(6)
+    rows = [limbs]
+    for _ in range(1, M):
+        row = rng.integers(0, 1 << 16, size=(16, T), dtype=np.int64)
+        row[15] = rng.integers(0, 0x73ED, size=T)        # below r's top limb: canonical
+        rows.append(row)
+    alpha, beta = 0x1234567890ABCDEF, 0xFEDCBA0987654321
+
+    def wire(coms, evals, proofs, mc, z, pi0, pi1):
+        return ([g1_to_bytes(c) for c in coms], [fr_to_bytes(y) for y in evals],
+                [g1_to_bytes(p) for p in proofs], g1_to_bytes(mc), fr_to_bytes(z),
+                g1_to_bytes(pi0), g1_to_bytes(pi1))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coms = [b.worker_commit(i, r) for i, r in enumerate(rows)]
+    opens = [b.worker_open(i, r, alpha) for i, r in enumerate(rows)]
+    mc = b.master_commit(coms)
+    z, (pi0, pi1) = b.master_open([y for y, _ in opens], [p for _, p in opens], beta)
+    per_request_ms = (time.perf_counter() - t0) * 1e3
+    want = wire(coms, [y for y, _ in opens], [p for _, p in opens], mc, z, pi0, pi1)
+    log(f"phase 6 (round): the per-request round (M = {M} commits and opens, then the "
+        f"master on the host) {per_request_ms:.3f} ms")
+
+    paths = {}
+    for label, table_c in ((f"prove_round_s{SCALE}", b.settings.precompute.c),
+                           (f"prove_round_tableless_s{SCALE}", None)):
+        prove = ps.build_distributed_prove(None, table_c)
+        times = []
+        for run in range(2):
+            torch.cuda.synchronize()
+            COUNTERS.reset()
+            t0 = time.perf_counter()
+            args = ps.prove_inputs_from_backend(b, rows, alpha, beta, table_c)
+            t1 = time.perf_counter()
+            out = prove(*args)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+            if run == 0:
+                launches = paths[label] = dict(COUNTERS.launches)
+            del args
+        got = prove_outputs_to_ints(out)
+        check(wire(got["commits"], got["evals"], got["proofs"], got["master_com"], got["z"],
+                   got["pi0"], got["pi1"]) == want,
+              f"{label}: the round differs from the per-request round")
+        pi = (got["pi0"], got["pi1"])
+        check(b.master_verify(got["master_com"], beta, alpha, got["z"], pi),
+              f"{label}: the aggregate proof was rejected")
+        check(not b.master_verify(got["master_com"], beta, alpha, (got["z"] + 1) % R, pi),
+              f"{label}: a wrong z was accepted")
+        check(launches["accumulate"] == 2 * M and launches["horner_2k"] == 2 * M
+              and launches["g1_madd_ladder"] == 1 and launches["g1_dbl"] == 0
+              and launches["g1_madd"] == 0,
+              f"{label}: launches {launches} (expected K1 and K4 {2 * M} times each, the "
+              f"ladder once for pi1, no K3 and no batched K5)")
+        log(f"phase 6 (round): {label}: inputs {times[0][0]:.3f} / {times[1][0]:.3f} ms, the "
+            f"round {times[0][1]:.3f} / {times[1][1]:.3f} ms (first / second call, after "
+            f"torch.cuda.synchronize()) against the per-request round's "
+            f"{per_request_ms:.3f} ms; byte-equal to it, verified, a wrong z rejected; "
+            f"launches {launches}; {card}")
+    return paths
+
+
 # -- phase 7 ------------------------------------------------------------------------
 
 def _read_server_log(path):
@@ -1355,6 +1440,7 @@ def main() -> int:
         from_files, backend, limbs = timed_phase("phase 5", phase5_files, card, setup_s)
         tableless, naive = timed_phase("phase 6", phase6_tableless, backend, limbs)
         univariate = timed_phase("phase 6 (univariate)", phase6_univariate, backend)
+        rounds = timed_phase("phase 6 (round)", phase6_round, backend, limbs, card)
         del backend
         torch.cuda.empty_cache()
         client_round, client_requests = timed_phase("phase 7", phase7_client_round, card)
@@ -1366,7 +1452,7 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {"server_in_memory_s20": served, "server_from_files_s20": from_files,
-             "tableless_T2^19": tableless, "msm_naive_s4": naive, **univariate,
+             "tableless_T2^19": tableless, "msm_naive_s4": naive, **univariate, **rounds,
              "client_round_s20_m2": client_round}
     per_request = {f"{m} ({phase})": c for phase, requests in (("phase 4", per_request),
                                                                ("phase 7", client_requests))

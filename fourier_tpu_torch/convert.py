@@ -17,7 +17,10 @@ import numpy as np
 import torch
 
 from .models.piano import PianoPrecompute, PianoSettings
+from .ops import curve as cv
 from .ops.curve import G1Aff, G1Jac
+from .ops.limbs import vec_to_ints
+from .ops.msm_fused import pack_points
 
 
 def limbs_from_array(a, device="cuda") -> torch.Tensor:
@@ -60,3 +63,45 @@ def settings_from_arrays(src, device="cuda") -> PianoSettings:
         precompute=(None if src.precompute is None
                     else precompute_from_arrays(src.precompute, device)),
     )
+
+
+def prove_inputs_from_arrays(args, device="cuda") -> tuple:
+    """The reference's prove_inputs_from_backend tuple (u_x, u_y, u_inf,
+    g_ty_x, g_ty_y, g_ty_inf, coeffs, alpha, beta, left_roots, right_roots,
+    t_inv[, ut_x, ut_y, ut_inf]) as array-likes -> the arguments of the
+    port's prove (parallel/prove_sharded.py): the same limbs as int64
+    tensors, the masks as bool, and the affine row tables, where present,
+    as the packed rows [M, W*T, 24] and masks [M, W*T] the port reads."""
+    masks = (2, 5)
+    out = tuple(torch.as_tensor(np.asarray(a).astype(bool), device=device) if k in masks
+                else limbs_from_array(a, device) for k, a in enumerate(args[:12]))
+    if len(args) == 12:
+        return out
+    tx, ty, tinf = (np.asarray(a) for a in args[12:])
+    tables = [affine_from_arrays(G1Aff(tx[:, i], ty[:, i], tinf[i]), device)
+              for i in range(tinf.shape[0])]
+    return out + (torch.stack([pack_points(t) for t in tables]),
+                  torch.stack([t.inf for t in tables]))
+
+
+def prove_outputs_to_ints(out) -> dict:
+    """A prove output dict of either package -> affine points (refimpl
+    tuples, None at infinity) and ints: master_com, z, pi0, pi1, and the
+    lists commits, evals and proofs."""
+
+    def arr(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    def points(p):
+        return cv.jac_to_int_points(G1Jac(*(torch.as_tensor(arr(c).astype(np.int64))
+                                            for c in p)))
+
+    return {
+        "master_com": points(out["master_com"])[0],
+        "z": vec_to_ints(arr(out["z"]))[0],
+        "pi0": points(out["pi0"])[0],
+        "pi1": points(out["pi1"])[0],
+        "commits": points(out["commits"]),
+        "evals": vec_to_ints(arr(out["evals"])),
+        "proofs": points(out["proofs"]),
+    }

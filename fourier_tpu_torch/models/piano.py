@@ -298,25 +298,30 @@ def generate_trusted_setup(fft: PianoFFTSettings, secrets: tuple[bytes, bytes]) 
 # ---------------------------------------------------------------------------
 
 def _eval_form_open(roots_mont, f_mont, alpha_mont, t_inv_mont):
-    """(y_mont [L, 1], qhat_mont [L, T], any_zero_diff) for Lagrange values
-    f_j on the domain and a point alpha, all Montgomery:
+    """(y_mont [L, ..., 1], qhat_mont [L, ..., T], any_zero_diff) for
+    Lagrange values f_j on the domain and a point alpha, all Montgomery:
 
     y      = (alpha^T - 1)/T * sum_j f_j w^j / (alpha - w^j)
     q(w^j) = (y - f_j) / (alpha - w^j)
+
+    roots [L, T], alpha and t_inv [L, 1]; f [L, T] is one row, [L, ..., T]
+    a batch of rows, which share the one batch inversion of alpha - w^j.
     """
-    T = roots_mont.shape[-1]
+    L, T = roots_mont.shape
     diffs = FR.sub(alpha_mont, roots_mont)
     any_zero = bool(FR.is_zero(diffs).any())
     invd = FR.batch_inv(diffs)
     alpha_t = FR.pow_const(alpha_mont, T)
     one = FR.broadcast_const("one_mont", (1,), roots_mont.device)
     factor = FR.mul(FR.sub(alpha_t, one), t_inv_mont)
-    s = FR.mul(FR.mul(f_mont, roots_mont), invd)
+    rows = (L,) + (1,) * (f_mont.ndim - 2)
+    roots_b, invd_b = roots_mont.reshape(rows + (T,)), invd.reshape(rows + (T,))
+    s = FR.mul(FR.mul(f_mont, roots_b), invd_b)
     while s.shape[-1] > 1:
         h = s.shape[-1] // 2
         s = FR.add(s[..., :h], s[..., h:])
-    y = FR.mul(factor, s)
-    qhat = FR.mul(FR.sub(y, f_mont), invd)
+    y = FR.mul(factor.reshape(rows + (1,)), s)
+    qhat = FR.mul(FR.sub(y, f_mont), invd_b)
     return y, qhat, any_zero
 
 

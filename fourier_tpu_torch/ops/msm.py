@@ -73,11 +73,11 @@ def msm(points: G1Aff, scalars) -> G1Jac:
 
 
 def _bit_length(scalars) -> int:
-    """Bits of the largest of [FR_LIMBS, n] canonical scalars."""
-    nonzero = torch.nonzero((scalars != 0).any(dim=1)).reshape(-1)
+    """Bits of the largest of [FR_LIMBS, ...] canonical scalars."""
+    nonzero = torch.nonzero((scalars != 0).reshape(scalars.shape[0], -1).any(dim=1))
     if nonzero.numel() == 0:
         return 0
-    top = int(nonzero[-1])
+    top = int(nonzero[-1, 0])
     return top * LIMB_BITS + int(scalars[top].max()).bit_length()
 
 
@@ -85,7 +85,9 @@ def msm_naive(points: G1Aff, scalars) -> G1Jac:
     """The MSM of tiny n: every lane runs double-and-add on its own point
     from the scalars' top bit down (one K5 ladder launch: a doubling and a
     mixed add of the affine point where the bit is set, a bit), then one
-    tree sum, a K2 launch a level."""
+    tree sum, a K2 launch a level.  Points [L, ..., n] and scalars
+    [FR_LIMBS, ..., n] with leading batch axes give one MSM each, in the
+    same launches."""
     acc = kernels.g1_madd_ladder(points, scalars, _bit_length(scalars))
     out = cv.halving_tree(acc, -1, 1, add=cv.add_fast)
     return G1Jac(*(c[..., 0] for c in out))

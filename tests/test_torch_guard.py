@@ -2,11 +2,12 @@
 cannot do.
 
 - A fresh interpreter imports every fourier_tpu_torch module (the client,
-  bipoly, univariate and fp2 too), commits a scale-4 row and a constant
-  univariate polynomial on the CPU and finds no jax and no fourier_tpu
-  module loaded.
-- No port source (nor chip_smoke.py, kernel_probe.py, the card-only kernel
-  tests or their redundant-form models) imports jax or any fourier_tpu
+  bipoly, univariate, fp2 and the parallel package too), commits a
+  scale-4 row and a constant univariate polynomial on the CPU and finds no
+  jax and no fourier_tpu module loaded.
+- No port source (parallel/ included; nor chip_smoke.py, kernel_probe.py,
+  the card-only kernel tests, their redundant-form models, or the gloo
+  tests, whose ranks import their module) imports jax or any fourier_tpu
   module other than fourier_tpu_torch.
 - `run` refuses a CUDA device when none is visible; `setup` refuses what
   the reference's can_proceed refuses, with exit code 1.
@@ -37,6 +38,8 @@ torch.set_num_threads(1)
 import fourier_tpu_torch, fourier_tpu_torch.convert, fourier_tpu_torch.ops.serialize
 import fourier_tpu_torch.runtime.cli, fourier_tpu_torch.runtime.server, fourier_tpu_torch.runtime.io
 import fourier_tpu_torch.runtime.client, fourier_tpu_torch.models.bipoly, fourier_tpu_torch.ops.fp2
+import fourier_tpu_torch.parallel.mesh, fourier_tpu_torch.parallel.prove_sharded
+import fourier_tpu_torch.parallel.msm_fused_sharded, fourier_tpu_torch.parallel.multihost
 from fourier_tpu_torch.models.univariate import UnivariateKZG
 from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                             PianoPrecompute, generate_trusted_setup)
@@ -70,9 +73,12 @@ def test_port_sources_never_name_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fourier_tpu)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_probe.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py"),
-             os.path.join(ROOT, "tests", "torch_redundant.py")]
+             os.path.join(ROOT, "tests", "torch_redundant.py"),
+             os.path.join(ROOT, "tests", "test_torch_parallel.py"),
+             os.path.join(ROOT, "tests", "test_torch_multihost.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert os.path.join(PKG, "parallel", "prove_sharded.py") in files
     for path in files:
         with open(path) as fh:
             hit = pattern.search(fh.read())

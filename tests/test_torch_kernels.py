@@ -19,8 +19,11 @@ and past the lanes a block keeps, K3 on coordinates 0, 1, p - 1,
 identities and lanes whose redundant values come near 2p, K2 and K5 on
 such lanes too (identities, P = Q, P = -Q), K5's ladder at 8 and 64
 lanes and 0, 1 and 255 bits, and K4 at the main path's shapes and on
-all-identity terms, one finite lane and equal terms.  Comparisons are
-exact.
+all-identity terms, one finite lane and equal terms.  The round as one
+call (parallel/prove_sharded.py) runs on the card and on the CPU from one
+setup, tabled and tableless, at M = 4 rows of 16 points (msm_naive's
+ladder) and M = 1 row of 128 (the tableless msm), with equal outputs.
+Comparisons are exact.
 """
 
 import random
@@ -356,3 +359,30 @@ def test_horner_edge_terms_match_plain_twin(cuda_device, kind):
     assert tcv.jac_to_int_points(got) == [expect]
     doubled = kernels.COUNTERS.collisions()["horner_2k"] - before
     assert (doubled > 0) == (kind == "equal terms")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(6, 2), (7, 0)])
+def test_round_on_card_matches_cpu(cuda_device, n, m):
+    from fourier_tpu_torch.convert import prove_outputs_to_ints
+    from fourier_tpu_torch.models import piano as tpiano
+    from fourier_tpu_torch.parallel import prove_sharded as ps
+
+    rng = random.Random(0x9D + n)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        fft = tpiano.PianoFFTSettings(n, m, dev)
+        settings = tpiano.generate_trusted_setup(fft, (b"\x2a" * 32, b"\x2b" * 32))
+        settings.precompute = tpiano.PianoPrecompute.generate(settings)
+        b = tpiano.PianoBackend(fft, settings)
+        if dev == "cpu":
+            rows = [[rng.randrange(R) for _ in range(fft.T)] for _ in range(fft.M)]
+            alpha, beta = rng.randrange(R), rng.randrange(R)
+        for table_c in (settings.precompute.c, None):
+            out = ps.build_distributed_prove(None, table_c)(
+                *ps.prove_inputs_from_backend(b, rows, alpha, beta, table_c))
+            outs[str(dev), table_c] = prove_outputs_to_ints(out)
+    assert len(set(map(repr, outs.values()))) == 1
+    got = outs["cpu", None]
+    assert b.master_verify(got["master_com"], beta, alpha, got["z"], (got["pi0"], got["pi1"]))
+

@@ -29,12 +29,13 @@ SECRETS = (b"\x07" * 32, b"\x08" * 32)
 
 
 def _answers(kzg, polys, x):
-    out = []
-    for coeffs in polys:
-        com = kzg.commit_to_poly(coeffs)
-        y, proof = kzg.compute_proof_single(coeffs, x)
-        out.append((g1_to_bytes(com), fr_to_bytes(y), g1_to_bytes(proof)))
-    return out
+    """[(commitment, y, proof)] of each polynomial at x."""
+    return [(kzg.commit_to_poly(coeffs), *kzg.compute_proof_single(coeffs, x))
+            for coeffs in polys]
+
+
+def _wire(answers):
+    return [(g1_to_bytes(com), fr_to_bytes(y), g1_to_bytes(proof)) for com, y, proof in answers]
 
 
 @pytest.mark.parametrize("n,m,lengths", [(5, 1, (16, 5)), (7, 0, (100,))],
@@ -46,17 +47,16 @@ def test_univariate_matches_jax(n, m, lengths):
 
     def jax_side():
         fft = jpiano.PianoFFTSettings(n, m)
-        return _answers(JaxKZG(jpiano.generate_trusted_setup(fft, SECRETS), fft), polys, x)
+        return _wire(_answers(JaxKZG(jpiano.generate_trusted_setup(fft, SECRETS), fft),
+                              polys, x))
 
     with ThreadPoolExecutor(1) as pool:          # the reference alongside the port
         want = pool.submit(jax_side)
         fft = tpiano.PianoFFTSettings(n, m, "cpu")
         kzg = UnivariateKZG(tpiano.generate_trusted_setup(fft, SECRETS), fft)
         got = _answers(kzg, polys, x)
-        assert got == want.result()
-    for coeffs in polys:
-        com = kzg.commit_to_poly(coeffs)
-        y, proof = kzg.compute_proof_single(coeffs, x)
+        assert _wire(got) == want.result()
+    for coeffs, (com, y, proof) in zip(polys, got):
         assert y == rpoly.poly_eval(coeffs, x)
         assert kzg.verify_proof_single(com, x, y, proof)
         assert not kzg.verify_proof_single(com, x, (y + 1) % R, proof)

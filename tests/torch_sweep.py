@@ -1,4 +1,5 @@
-"""Shared helpers of the pianist sweep parity tests (tests/test_torch_sweep*.py).
+"""Shared helpers of the pianist sweep parity tests (tests/test_torch_sweep*.py
+and tests/test_torch_prove.py).
 
 For an (n, m) case both packages build one trusted setup from SECRETS and
 their own window tables, side by side in two threads, once per process;
