@@ -1222,16 +1222,21 @@ def phase6_round(b, limbs, card):
                 [g1_to_bytes(p) for p in proofs], g1_to_bytes(mc), fr_to_bytes(z),
                 g1_to_bytes(pi0), g1_to_bytes(pi1))
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    coms = [b.worker_commit(i, r) for i, r in enumerate(rows)]
-    opens = [b.worker_open(i, r, alpha) for i, r in enumerate(rows)]
-    mc = b.master_commit(coms)
-    z, (pi0, pi1) = b.master_open([y for y, _ in opens], [p for _, p in opens], beta)
-    per_request_ms = (time.perf_counter() - t0) * 1e3
-    want = wire(coms, [y for y, _ in opens], [p for _, p in opens], mc, z, pi0, pi1)
+    per_request_ms = []
+    for run in range(2):                            # timed twice, as the round is
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coms = [b.worker_commit(i, r) for i, r in enumerate(rows)]
+        opens = [b.worker_open(i, r, alpha) for i, r in enumerate(rows)]
+        mc = b.master_commit(coms)
+        z, (pi0, pi1) = b.master_open([y for y, _ in opens], [p for _, p in opens], beta)
+        per_request_ms.append((time.perf_counter() - t0) * 1e3)
+        got = wire(coms, [y for y, _ in opens], [p for _, p in opens], mc, z, pi0, pi1)
+        check(run == 0 or got == want, "the per-request round differs between two calls")
+        want = got
+    per_request = " / ".join(f"{ms:.3f}" for ms in per_request_ms)
     log(f"phase 6 (round): the per-request round (M = {M} commits and opens, then the "
-        f"master on the host) {per_request_ms:.3f} ms")
+        f"master on the host) {per_request} ms (first / second call)")
 
     paths = {}
     for label, table_c in ((f"prove_round_s{SCALE}", b.settings.precompute.c),
@@ -1240,14 +1245,18 @@ def phase6_round(b, limbs, card):
         times = []
         for run in range(2):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             COUNTERS.reset()
             t0 = time.perf_counter()
             args = ps.prove_inputs_from_backend(b, rows, alpha, beta, table_c)
+            torch.cuda.synchronize()
             t1 = time.perf_counter()
             out = prove(*args)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+            times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                          (torch.cuda.max_memory_allocated() - base) / 2**30))
             if run == 0:
                 launches = paths[label] = dict(COUNTERS.launches)
             del args
@@ -1266,9 +1275,10 @@ def phase6_round(b, limbs, card):
               f"{label}: launches {launches} (expected K1 and K4 {2 * M} times each, the "
               f"ladder once for pi1, no K3 and no batched K5)")
         log(f"phase 6 (round): {label}: inputs {times[0][0]:.3f} / {times[1][0]:.3f} ms, the "
-            f"round {times[0][1]:.3f} / {times[1][1]:.3f} ms (first / second call, after "
-            f"torch.cuda.synchronize()) against the per-request round's "
-            f"{per_request_ms:.3f} ms; byte-equal to it, verified, a wrong z rejected; "
+            f"round {times[0][1]:.3f} / {times[1][1]:.3f} ms (first / second call, each after "
+            f"torch.cuda.synchronize()), peak device memory above the backend's "
+            f"{times[0][2]:.3f} / {times[1][2]:.3f} GiB, against the per-request round's "
+            f"{per_request} ms; byte-equal to it, verified, a wrong z rejected; "
             f"launches {launches}; {card}")
     return paths
 

@@ -71,7 +71,8 @@ def prove_inputs_from_arrays(args, device="cuda") -> tuple:
     t_inv[, ut_x, ut_y, ut_inf]) as array-likes -> the arguments of the
     port's prove (parallel/prove_sharded.py): the same limbs as int64
     tensors, the masks as bool, and the affine row tables, where present,
-    as the packed rows [M, W*T, 24] and masks [M, W*T] the port reads."""
+    as the lists of packed rows ([W*T, 24] each) and masks ([W*T]) the
+    port reads."""
     masks = (2, 5)
     out = tuple(torch.as_tensor(np.asarray(a).astype(bool), device=device) if k in masks
                 else limbs_from_array(a, device) for k, a in enumerate(args[:12]))
@@ -80,8 +81,7 @@ def prove_inputs_from_arrays(args, device="cuda") -> tuple:
     tx, ty, tinf = (np.asarray(a) for a in args[12:])
     tables = [affine_from_arrays(G1Aff(tx[:, i], ty[:, i], tinf[i]), device)
               for i in range(tinf.shape[0])]
-    return out + (torch.stack([pack_points(t) for t in tables]),
-                  torch.stack([t.inf for t in tables]))
+    return out + ([pack_points(t) for t in tables], [t.inf for t in tables])
 
 
 def prove_outputs_to_ints(out) -> dict:

@@ -23,14 +23,16 @@ class Group(NamedTuple):
 def make_mesh(n_ranks: int | None = None) -> Group | None:
     """The default process group, or the subgroup of its first n_ranks
     ranks (every process must call this: creating a subgroup is
-    collective).  None when torch.distributed is not initialised and one
-    rank was asked for."""
+    collective).  None where there is one process (torch.distributed not
+    initialised, or a world of one) and one rank was asked for: every
+    entry of the package runs a None group in process, with no
+    collective."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and n_ranks in (None, 1):
+        return None
     if not dist.is_initialized():
-        if n_ranks in (None, 1):
-            return None
         raise ValueError(f"requested {n_ranks} ranks, but torch.distributed is not "
                          "initialised")
-    world = dist.get_world_size()
     n = world if n_ranks is None else n_ranks
     if not 1 <= n <= world:
         raise ValueError(f"requested {n} ranks, have {world}")

@@ -28,7 +28,6 @@ one-device MSM.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from ..constants import FP_LIMBS
 from ..ops import curve as cv
@@ -170,8 +169,5 @@ def msm_fused_sharded(points: G1Aff, scalars, c: int, group: Group | None) -> G1
     return cv.tree_reduce_axis(parts, -1)
 
 
-def local_group() -> Group | None:
-    """The group of every process, or None where there is one."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
-        return None
-    return make_mesh()
+# the reference's local_mesh: the group of every process, None where there is one
+local_group = make_mesh

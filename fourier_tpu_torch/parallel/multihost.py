@@ -16,9 +16,7 @@ Every process passes the whole logical inputs and keeps its own rows.
 
 ``python -m fourier_tpu_torch.parallel.multihost --dryrun ...`` runs N
 local processes through the round (``spawn_dryrun``); with
-``--coordinator`` and ``--process-id`` it is one of them.  With ``--msm``
-the processes instead hold the sharded BGMW MSM against the one-device
-MSM at a given size, over 2 ranks and over all of them.
+``--coordinator`` and ``--process-id`` it is one of them.
 """
 
 from __future__ import annotations
@@ -62,21 +60,24 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
     return dev
 
 
-def global_group() -> Group | None:
-    """The group of every process."""
-    return make_mesh()
+# the reference's global_mesh: the group of every process, None where there is one
+global_group = make_mesh
 
 
 def coordination_barrier(name: str, timeout_s: float = 600.0) -> bool:
-    """Block until every process reaches this point: a monitored barrier
-    (which names the ranks that did not arrive) on gloo, a barrier on NCCL.
-    False where torch.distributed is not initialised."""
+    """Block until every process reaches the barrier `name`: a monitored
+    barrier (which names the ranks that did not arrive) on gloo, a barrier
+    on NCCL.  A barrier that fails raises with its name.  False where
+    torch.distributed is not initialised."""
     if not dist.is_initialized():
         return False
-    if dist.get_backend() == "gloo":
-        dist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout_s))
-    else:
-        dist.barrier()
+    try:
+        if dist.get_backend() == "gloo":
+            dist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout_s))
+        else:
+            dist.barrier()
+    except RuntimeError as e:
+        raise RuntimeError(f"coordination barrier {name!r} failed: {e}") from e
     return True
 
 
@@ -86,7 +87,7 @@ def run_prove(backend, rows, alpha: int, beta: int, group: Group | None = None):
     prove_sharded's dict, equal on every rank."""
     from .prove_sharded import build_distributed_prove, local_inputs, prove_inputs_from_backend
 
-    group = global_group() if group is None else group
+    group = make_mesh() if group is None else group
     args = prove_inputs_from_backend(backend, rows, alpha, beta)
     return build_distributed_prove(group)(*local_inputs(args, group))
 
@@ -165,68 +166,6 @@ def _dryrun_worker(coordinator: str, num_processes: int, process_id: int,
     print(f"[multihost dryrun] process {process_id}/{num_processes}: OK", flush=True)
 
 
-def _msm_worker(coordinator: str, num_processes: int, process_id: int,
-                log_n: int, c: int, device: str) -> None:
-    """One process of the sharded-MSM check: the same random table on every
-    rank, msm_fused_bgmw_sharded over the first 2 ranks and over all of
-    them, each equal to msm_fused_bgmw on one device, each timed."""
-    from ..ops import curve as cv
-    from ..ops import msm as msm_mod
-    from ..ops import msm_fused as mf
-    from ..ops.curve import G1Jac
-    from ..ops.limbs import ints_to_vec
-    from ..refimpl.curve import G1_GEN
-    from .msm_fused_sharded import msm_fused_bgmw_sharded
-
-    torch.set_num_threads(1)
-    dev = initialize(coordinator, num_processes, process_id, device)
-    n = 1 << log_n
-    rng = np.random.default_rng(11)
-    sc = [int.from_bytes(rng.bytes(32), "big") >> 3 for _ in range(2 * n)]
-    base = cv.to_affine_batched(msm_mod.fixed_base_msm(
-        G1_GEN, torch.as_tensor(ints_to_vec(sc[:n], 16).astype(np.int64), device=dev)))
-    table = msm_mod.bgmw_expand(base, c)
-    packed = mf.pack_points(table)
-    scalars = torch.as_tensor(ints_to_vec(sc[n:], 16).astype(np.int64), device=dev)
-
-    def timed(fn, reps=5):
-        """fn's result and the median, min and max ms of reps calls after a
-        warm one, every rank starting each call together."""
-        out, ms = fn(), []
-        for _ in range(reps):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            coordination_barrier("msm-timed")
-            t0 = time.perf_counter()
-            out = fn()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        ms.sort()
-        return out, f"{ms[len(ms) // 2]:.3f} ms ({ms[0]:.3f}-{ms[-1]:.3f})"
-
-    def point(p):
-        return cv.jac_to_int_points(G1Jac(*(t[..., None] for t in p)))[0]
-
-    want, one = timed(lambda: mf.msm_fused_bgmw(packed, table.inf, scalars, c))
-    want = point(want)
-    for D in sorted({2, num_processes}):
-        group = make_mesh(D)
-        if group.rank < 0:                      # not in the subgroup: meet timed()'s barriers
-            for _ in range(5):
-                coordination_barrier("msm-timed")
-            continue
-        got, ms = timed(lambda: msm_fused_bgmw_sharded(packed, table.inf, scalars, c, group))
-        if point(got) != want:
-            raise AssertionError(f"the MSM over {D} ranks differs from one device's")
-        _log(process_id, f"msm_fused_bgmw_sharded at 2^{log_n} points, c = {c}, over {D} "
-                         f"ranks equals one device's: {ms} (one device {one}), median "
-                         f"(min-max) of 5 after a warm call")
-    coordination_barrier("msm-done")
-    dist.destroy_process_group()
-    print(f"[multihost msm] process {process_id}/{num_processes}: OK", flush=True)
-
-
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -234,11 +173,11 @@ def _free_port() -> int:
 
 
 def spawn_dryrun(n_processes: int = 2, scale: int = 5, machines_scale: int = 2,
-                 device: str = "cpu", timeout: float = 900.0, msm: tuple | None = None) -> None:
-    """Start n local processes of the dryrun (or, with msm = (log_n, c),
-    of the sharded-MSM check) and wait for all of them.  A process that
-    fails stops the others, and this raises with every process's tail; so
-    does the timeout.  device="cuda" needs a card a process."""
+                 device: str = "cuda", timeout: float = 900.0) -> None:
+    """Start n local processes of the dryrun and wait for all of them.  A
+    process that fails stops the others, and this raises with every
+    process's tail; so does the timeout.  device="cuda" needs a card a
+    process; device="cpu" runs them over gloo."""
     if device == "cuda":
         if torch.cuda.device_count() < n_processes:
             raise RuntimeError(f"{n_processes} processes need {n_processes} cards, "
@@ -247,8 +186,6 @@ def spawn_dryrun(n_processes: int = 2, scale: int = 5, machines_scale: int = 2,
 
         kernels.build()                         # once, before the processes load it
     coordinator = f"127.0.0.1:{_free_port()}"
-    work = (["--msm", str(msm[0]), str(msm[1])] if msm is not None
-            else ["--scale", str(scale), "--machines-scale", str(machines_scale)])
     procs, logs = [], []
     try:
         for pid in range(n_processes):
@@ -257,7 +194,8 @@ def spawn_dryrun(n_processes: int = 2, scale: int = 5, machines_scale: int = 2,
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "fourier_tpu_torch.parallel.multihost", "--dryrun",
                  "--coordinator", coordinator, "--num-processes", str(n_processes),
-                 "--process-id", str(pid), "--device", device, *work],
+                 "--process-id", str(pid), "--device", device,
+                 "--scale", str(scale), "--machines-scale", str(machines_scale)],
                 stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
@@ -292,16 +230,11 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=int, default=5)
     ap.add_argument("--machines-scale", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--msm", type=int, nargs=2, metavar=("LOG_N", "C"),
-                    help="the sharded-MSM check at 2^LOG_N points, window C")
     ap.add_argument("--timeout", type=float, default=900.0)
     args = ap.parse_args(argv)
     if args.process_id is None:
         spawn_dryrun(args.num_processes, args.scale, args.machines_scale, args.device,
-                     args.timeout, tuple(args.msm) if args.msm else None)
-    elif args.msm:
-        _msm_worker(args.coordinator, args.num_processes, args.process_id, *args.msm,
-                    args.device)
+                     args.timeout)
     else:
         _dryrun_worker(args.coordinator, args.num_processes, args.process_id, args.scale,
                        args.machines_scale, args.device)

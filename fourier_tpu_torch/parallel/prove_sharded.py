@@ -66,17 +66,18 @@ def prove_in_specs(table_c: int | None = None) -> tuple:
 
 def local_inputs(args, group: Group | None, table_c: int | None = None) -> tuple:
     """This rank's share of prove's arguments: its M / D rows of every
-    argument with a worker axis."""
+    argument with a worker axis (a slice of the row tables' sequences)."""
     D, d = size_rank(group)
     if D == 1:
         return tuple(args)
     out = []
     for a, axis in zip(args, prove_in_specs(table_c)):
         if axis is not None:
-            if a.shape[axis] % D:
-                raise ValueError(f"{a.shape[axis]} workers do not divide over {D} ranks")
-            k = a.shape[axis] // D
-            a = a.narrow(axis, d * k, k)
+            m = a.shape[axis] if isinstance(a, torch.Tensor) else len(a)
+            if m % D:
+                raise ValueError(f"{m} workers do not divide over {D} ranks")
+            k = m // D
+            a = a.narrow(axis, d * k, k) if isinstance(a, torch.Tensor) else a[d * k:(d + 1) * k]
         out.append(a)
     return tuple(out)
 
@@ -92,8 +93,9 @@ def build_distributed_prove(group: Group | None = None, table_c: int | None = No
     device, all of them).  coeffs, alpha and beta are canonical limbs
     ([FR_LIMBS, M/D, T], [FR_LIMBS, 1]); the rest as
     ``prove_inputs_from_backend`` makes them.  With table_c set the row
-    MSMs run over the packed BGMW tables ut_packed [M/D, W*T, 24] with
-    masks ut_inf [M/D, W*T] (the reference passes the affine tables).
+    MSMs run over the packed BGMW tables ut_packed, a sequence of M/D
+    tensors [W*T, 24], with masks ut_inf, M/D tensors [W*T] (the
+    reference passes the affine tables, stacked).
 
     The dict holds master_com, pi0 and pi1 (Jacobian [L, 1]), z
     (canonical [FR_LIMBS, 1]), and every worker's commits and proofs
@@ -165,9 +167,10 @@ def prove_inputs_from_backend(backend, rows, alpha: int, beta: int,
                               table_c: int | None = None) -> tuple:
     """The backend's state and the witness rows as prove's arguments, on
     the backend's device.  rows: M rows, each a list of ints or
-    [FR_LIMBS, T] canonical limbs.  With table_c set, the packed table of
-    every U row is appended: the backend's own where its precompute has
-    window table_c, else expanded here (``bgmw_expand``)."""
+    [FR_LIMBS, T] canonical limbs.  With table_c set, the packed tables of
+    the U rows and their masks are appended, as two lists of one tensor a
+    row: the backend's own tensors where its precompute has window
+    table_c (nothing is copied), else expanded here (``bgmw_expand``)."""
     s, fft, dev = backend.settings, backend.fft, backend.device
     coeffs = torch.stack([backend._coeffs_to_device(r) for r in rows], dim=1)
 
@@ -196,4 +199,4 @@ def prove_inputs_from_backend(backend, rows, alpha: int, beta: int,
             table = msm_mod.bgmw_expand(s.u_row(i), table_c)
             packed.append(mf.pack_points(table))
             infs.append(table.inf)
-    return args + (torch.stack(packed), torch.stack(infs))
+    return args + (packed, infs)

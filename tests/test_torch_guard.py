@@ -6,9 +6,9 @@ cannot do.
   scale-4 row and a constant univariate polynomial on the CPU and finds no
   jax and no fourier_tpu module loaded.
 - No port source (parallel/ included; nor chip_smoke.py, kernel_probe.py,
-  the card-only kernel tests, their redundant-form models, or the gloo
-  tests, whose ranks import their module) imports jax or any fourier_tpu
-  module other than fourier_tpu_torch.
+  sharded_msm_probe.py, the card-only kernel tests, their redundant-form
+  models, or the gloo tests, whose ranks import their module) imports jax
+  or any fourier_tpu module other than fourier_tpu_torch.
 - `run` refuses a CUDA device when none is visible; `setup` refuses what
   the reference's can_proceed refuses, with exit code 1.
 - chip_smoke.py exits non-zero with no result line when no card is seen.
@@ -72,6 +72,7 @@ def test_port_sources_never_name_jax():
     # fourier_tpu\b does not match fourier_tpu_torch: no word boundary before "_"
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fourier_tpu)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_probe.py"),
+             os.path.join(ROOT, "sharded_msm_probe.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py"),
              os.path.join(ROOT, "tests", "torch_redundant.py"),
              os.path.join(ROOT, "tests", "test_torch_parallel.py"),

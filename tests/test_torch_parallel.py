@@ -9,7 +9,9 @@ with its table rows split over 2 and over 4 ranks, fused
 W = 24) and n = 16, c = 9 (signed, W = 29: shard edges inside a window);
 the tableless msm_fused_sharded; 3 ranks, which do not divide the bucket
 space, raise ValueError.  Every rank's result must equal refimpl's g1_msm
-and the one-device MSM.
+and the one-device MSM.  The round as one call over the backend's tables
+(parallel/prove_sharded.py), its rows split over 2 and over 4 ranks, must
+equal the backend's per-request round on every rank.
 """
 
 import functools
@@ -24,12 +26,15 @@ import torch
 import torch.distributed as dist
 
 from fourier_tpu_torch.constants import R
+from fourier_tpu_torch.convert import prove_outputs_to_ints
+from fourier_tpu_torch.models.piano import PianoBackend, SetupConfig
 from fourier_tpu_torch.ops import curve as tcv
 from fourier_tpu_torch.ops import msm as tmsm
 from fourier_tpu_torch.ops import msm_fused as tmf
 from fourier_tpu_torch.ops.curve import G1Jac
 from fourier_tpu_torch.ops.limbs import ints_to_vec
 from fourier_tpu_torch.parallel import msm_fused_sharded as mfs
+from fourier_tpu_torch.parallel import prove_sharded as ps
 from fourier_tpu_torch.parallel.mesh import make_mesh
 from fourier_tpu_torch.parallel.multihost import initialize
 from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_msm, g1_mul
@@ -92,7 +97,17 @@ def _case_bad_group(D, c, table, sc):
     return messages
 
 
-CASES = {"bgmw": _case_bgmw, "tableless": _case_tableless, "bad_group": _case_bad_group}
+def _case_round(D, table_c, args):
+    """The round over the first D ranks, each holding its M / D rows."""
+    group = make_mesh(D)
+    if group.rank < 0:
+        return None
+    out = ps.build_distributed_prove(group, table_c)(*ps.local_inputs(args, group, table_c))
+    return prove_outputs_to_ints(out)
+
+
+CASES = {"bgmw": _case_bgmw, "tableless": _case_tableless, "bad_group": _case_bad_group,
+         "round": _case_round}
 
 
 def _rank_main(rank, port, inbox, outbox):
@@ -195,3 +210,29 @@ def test_group_not_dividing_buckets_raises(world):
         assert len(messages) == 2
         assert all("3 ranks do not divide the 256 buckets" in m for m in messages)
     assert got[3] is None
+
+
+@functools.lru_cache(maxsize=None)
+def _round_case():
+    """(table_c, prove's arguments with the backend's row tables, the
+    per-request round's outputs) at scale 4, machines_scale 2 (M = 4)."""
+    b = PianoBackend.setup(SetupConfig(scale=4, machines_scale=2), "cpu")
+    rng = random.Random(0x7A)
+    rows = b.random_bivariate_polynomial()
+    alpha, beta = rng.randrange(R), rng.randrange(R)
+    commits = [b.worker_commit(i, r) for i, r in enumerate(rows)]
+    opens = [b.worker_open(i, r, alpha) for i, r in enumerate(rows)]
+    evals, proofs = [y for y, _ in opens], [p for _, p in opens]
+    z, (pi0, pi1) = b.master_open(evals, proofs, beta)
+    want = {"master_com": b.master_commit(commits), "z": z, "pi0": pi0, "pi1": pi1,
+            "commits": commits, "evals": evals, "proofs": proofs}
+    table_c = b.settings.precompute.c
+    return table_c, ps.prove_inputs_from_backend(b, rows, alpha, beta, table_c), want
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_tabled_round_sharded_matches_per_request(world, n_ranks):
+    table_c, args, want = _round_case()
+    got = world("round", n_ranks, table_c, args)()
+    assert got[:n_ranks] == [want] * n_ranks
+    assert got[n_ranks:] == [None] * (WORLD - n_ranks)
