@@ -36,18 +36,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
    MSM of fourier_tpu_torch.native on the same row.
 4. The main path: `python -m fourier_tpu_torch run --scale 20
-   --machines-scale 1` in a subprocess, driven over HTTP through the
-   whole worker and master flow; both worker proofs and the master proof
-   must verify and a repeated commitment must come back identical.  The
-   kernel launches are the server's own counts of that run.
+   --machines-scale 1 --msm-devices cuda:0` in a subprocess, driven over
+   HTTP through the whole worker and master flow; both worker proofs and
+   the master proof must verify and a repeated commitment must come back
+   identical.  The kernel launches are the server's own counts of that
+   run.
 5. Files: `setup --generate-setup --generate-precompute` writes the
    scale-20 setup and precompute files into a fresh directory of the
    checkout (removed at the end); `run --setup-path --precompute-path`
    serves from them through the same flow; a fixed row's commitment from
    that server equals the one of an in-process backend that loads only
-   the setup file and regenerates its tables.
+   the setup file and regenerates its tables.  The multi-card server:
+   `run --setup-path --msm-devices cuda:0,cuda:0,cuda:0,cuda:0` splits
+   every MSM over four shards of the card (tables built in memory at
+   c = 13, each shard's rows on its device), drives the same flow, and
+   its commitment of the fixed row must equal the file-loaded server's;
+   its per-request latency is printed beside phase 4's.  On a host of N
+   >= 2 cards it runs again over cuda:0..1 and over cuda:0..N-1.
 6. Tableless: on that in-process backend, row 0 without its table commits
-   and opens to the tabled bytes (K1, the tree kernel, K4); the
+   and opens to the tabled bytes (K1, the tree kernel, K4), and so it
+   does over four shards of the card (the points split); the
    pinned transcript's rows (8 points each) without tables take msm_naive
    (K5's ladder, then K2), and so does a 64-point MSM held against
    refimpl: each msm_naive call must launch the ladder once, K3 and the
@@ -70,14 +78,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. G2 on the card (ops/fp2.py, plain torch): g2_scalar_mul over 1,024
    lanes of random scalars, timed, 8 lanes held against refimpl.
 
-The main path is phases 4 to 7, nine paths: the in-memory server, the
-file-loaded server, the tableless MSM at T = 2^19, msm_naive at scale 4,
-the univariate KZG at T = 2^19 and at 64 coefficients, the round as one
-call at scale 20 / machines 1, tabled and tableless, and the client's
-round at scale 20 / machines 2.  Launches are counted from 0 before each
-path and read after it (a server's are its own counts of its run), and
-reported per path; a workerCommit of the in-memory servers must launch
-no K2, at most 2 tree kernels and K4 once.  The line before the last is the kernels' JSON record;
+The main path is phases 4 to 7, eleven paths (more on a host of several
+cards): the in-memory server, the file-loaded server, the server over
+four shards, the tableless MSM at T = 2^19 on one shard and over four,
+msm_naive at scale 4, the univariate KZG at T = 2^19 and at 64
+coefficients, the round as one call at scale 20 / machines 1, tabled and
+tableless, and the client's round at scale 20 / machines 2.  Every phase but the sharded
+ones pins one shard (`--msm-devices cuda:0`, or FOURIER_SHARD_MSM=0 for
+the client's server).  Launches are counted from 0 before each path and
+read after it (a server's are its own counts of its run), and reported
+per path; a workerCommit of a server must launch no K2 and, over D
+shards, K1 and K4 D times each and the tree kernel 4 D times (1 or 2 on
+one shard).  The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -101,6 +113,9 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "protocol_transcript_s4_m1.jso
 # the reference's default deployment (fourier_tpu/models/piano.py SetupConfig):
 # T = 2^19 coefficients per worker, M = 2 workers
 SCALE = 20
+# Every phase but the sharded ones runs a worker's MSM on one card, as a
+# one-card host does, so that its numbers stay one card's on any host.
+ONE_SHARD = ["cuda:0"]
 
 KERNEL_INFO = {
     "accumulate": ("fourier_tpu_torch/csrc/accumulate.cu", "fourier_tpu/ops/msm_fused.py:165"),
@@ -749,7 +764,7 @@ def phase2_transcript(device):
     fft = PianoFFTSettings(fx["scale"], fx["machines_scale"], device)
     settings = generate_trusted_setup(fft, tuple(bytes.fromhex(h) for h in fx["secrets_hex"]))
     settings.precompute = PianoPrecompute.generate(settings)
-    b = PianoBackend(fft, settings, device)
+    b = PianoBackend(fft, settings, device, ONE_SHARD)
 
     def g1(p):
         return wire.b64_encode(g1_to_bytes(p))
@@ -790,7 +805,7 @@ def phase3_oracle(device):
     settings = generate_trusted_setup(fft, (b"\x07" * 32, b"\x08" * 32))
     settings.precompute = PianoPrecompute.generate(settings)
     check(settings.precompute.c == 11, f"window {settings.precompute.c} at T=2^12, expected 11")
-    b = PianoBackend(fft, settings, device)
+    b = PianoBackend(fft, settings, device, ONE_SHARD)
     rng = random.Random(12)
     row = [rng.randrange(R) for _ in range(fft.T)]
     got = b.worker_commit(0, row)
@@ -862,14 +877,18 @@ def _log_seconds(lines, what):
 
 
 def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
-                 setup_kernels=("accumulate", "g1_dbl")):
+                 setup_kernels=("accumulate", "g1_dbl"), shards=1):
     """Start a scale-20 server, drive the worker and master flow over HTTP
     (every proof must verify, a repeated commitment must repeat) and stop
     it.  Returns (launch totals of the run, the server's setup seconds,
     its log lines, the commitment of `fixed_row` (wire strings) at i = 0
-    or None, the launches of its first workerCommit and workerOpen).
-    `setup_kernels` must have run during the server's setup; a BGMW
-    workerCommit launches no K2, at most 2 tree kernels and K4 once."""
+    or None, the launches of its first workerCommit and workerOpen, the
+    milliseconds of each method's requests).  `setup_kernels` must have
+    run during the server's setup.  A BGMW workerCommit over `shards`
+    shards launches no K2, K1 and K4 once a shard, and the tree kernel at
+    most twice on one shard (the factorised reduction), four times a shard
+    on several (the exchange's sums, the rows and column partials, the
+    gathered columns with the high bits, the residual lanes)."""
     from fourier_tpu_torch.runtime import wire
 
     port = _free_port()
@@ -922,13 +941,14 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
             row = rpc("fft", {"poly": f, "left": True, "inverse": True}, True)[0]["poly"]
             rows.append(row)
             out, launches = rpc("workerCommit", {"i": i, "poly": row}, True)
-            for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
-                check(launches[k] > 0, f"workerCommit ran no {k} kernel")
-            check(launches["g1_add"] == 0 and launches["g1_tree_reduce"] <= 2
-                  and launches["horner_2k"] == 1,
-                  f"workerCommit launched K2 {launches['g1_add']} times, the tree kernel "
-                  f"{launches['g1_tree_reduce']} times and K4 {launches['horner_2k']} times "
-                  f"(expected 0, at most 2 and 1)")
+            trees = launches["g1_tree_reduce"]
+            check(launches["g1_add"] == 0 and launches["accumulate"] == shards
+                  and launches["horner_2k"] == shards
+                  and (0 < trees <= 2 if shards == 1 else trees == 4 * shards),
+                  f"workerCommit launched K2 {launches['g1_add']} times, K1 "
+                  f"{launches['accumulate']}, the tree kernel {trees} and K4 "
+                  f"{launches['horner_2k']} times (expected 0, {shards}, "
+                  f"{'1 or 2' if shards == 1 else 4 * shards} and {shards})")
             per_request.setdefault("workerCommit", launches)
             com = out["commitment"]
             opened, launches = rpc("workerOpen", {"i": i, "poly": row, "x": alpha}, True)
@@ -955,16 +975,60 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
         for k, v in rec["launches"].items():
             totals[k] += v
     log(f"{label}: scale {SCALE} / machines 1 served and verified; kernel launches {totals}")
+    ms = {}
+    for method, dt, _ in timings:
+        ms.setdefault(method, []).append(dt * 1e3)
     return (totals, _log_seconds(server.lines, "setup took"), server.lines, fixed_com,
-            per_request)
+            per_request, ms)
 
 
 def phase4_main_path(card):
-    totals, setup_s, _, _, per_request = drive_server("phase 4", card)
+    totals, setup_s, _, _, per_request, ms = drive_server(
+        "phase 4", card, ["--msm-devices", ",".join(ONE_SHARD)])
     for k in ("accumulate", "g1_tree_reduce", "g1_dbl", "horner_2k"):
         check(totals[k] > 0, f"the main path launched no {k} kernel")
     check(totals["g1_add"] == 0, f"the main path launched K2 {totals['g1_add']} times")
-    return totals, setup_s, per_request
+    return totals, setup_s, per_request, ms
+
+
+def _ms_list(values):
+    return " / ".join(f"{v:.3f}" for v in values)
+
+
+def phase5_sharded(card, setup_path, served, row_strs, phase4_ms):
+    """The multi-card server: `run --setup-path S --msm-devices ...` with the
+    tables built in memory at the window of its shard count (c = 13 at four
+    shards: W = 20, 10,485,760 rows a row table), first four shards of
+    cuda:0, then, on a host of N >= 2 cards, the distinct cards cuda:0..1
+    and cuda:0..N-1.  Each drives the whole flow (every proof verifies),
+    its per-request launches are checked for its shard count, and its
+    commitment of the fixed row must equal `served`, that of the server
+    that loaded S and its c = 16 tables from files (phase 5; phase 4's
+    server drew its SRS from fresh secrets, which no other server can
+    reproduce).  Returns ({path: launch totals}, {path: per-request
+    launches})."""
+    import torch
+
+    runs = [("server_sharded4_s20", ["cuda:0"] * 4)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs += [(f"server_{D}cards_s20", [f"cuda:{i}" for i in range(D)])
+                 for D in sorted({2, n_cards})]
+    paths, requests = {}, {}
+    for path, devices in runs:
+        label = f"phase 5 ({path})"
+        totals, setup_s, _, com, per_request, ms = drive_server(
+            label, card, ["--setup-path", setup_path, "--msm-devices", ",".join(devices)],
+            fixed_row=row_strs, setup_kernels=("g1_dbl",), shards=len(devices))
+        check(com == served, f"{label}: the fixed row's commitment differs from the one-card "
+                             f"server's over the same setup file")
+        for method in ("workerCommit", "workerOpen"):
+            log(f"{label}: {method} {_ms_list(ms[method])} ms against phase 4's (one shard, "
+                f"c = 16) {_ms_list(phase4_ms[method])} ms; {card}")
+        log(f"{label}: the fixed row commits like the one-card server from files (byte for "
+            f"byte); server setup {setup_s:.3f} s")
+        paths[path], requests[path] = totals, per_request
+    return paths, requests
 
 
 # -- phases 5 and 6 -------------------------------------------------------------------
@@ -981,9 +1045,10 @@ def _fixed_row(T):
     return limbs, _enc_fr_batch(limbs)
 
 
-def phase5_files(card, setup_in_memory_s):
+def phase5_files(card, setup_in_memory_s, phase4_ms):
     """Setup and precompute files at the full scale: written by `setup`,
-    served by `run`, held against tables regenerated from the setup file."""
+    served by `run`, held against tables regenerated from the setup file;
+    the sharded servers over the same setup file (phase5_sharded)."""
     import torch
 
     from fourier_tpu_torch.models.piano import PianoBackend, SetupConfig
@@ -1003,7 +1068,8 @@ def phase5_files(card, setup_in_memory_s):
         res = subprocess.run(
             [sys.executable, "-m", "fourier_tpu_torch", "setup", "--scale", str(SCALE),
              "--machines-scale", "1", "--setup-path", setup_path, "--precompute-path",
-             pre_path, "--generate-setup", "--generate-precompute"],
+             pre_path, "--generate-setup", "--generate-precompute",
+             "--msm-devices", ",".join(ONE_SHARD)],
             cwd=ROOT, capture_output=True, text=True, timeout=900)
         check(res.returncode == 0, f"`setup` exited {res.returncode}:\n{res.stderr[-4000:]}")
         log(f"phase 5: `setup` wrote {os.path.getsize(setup_path)} B of setup file and "
@@ -1011,8 +1077,9 @@ def phase5_files(card, setup_in_memory_s):
             f"{time.perf_counter() - t0:.3f} s")
 
         limbs, row_strs = _fixed_row(T)
-        totals, setup_s, lines, served, _ = drive_server(
-            "phase 5", card, ["--setup-path", setup_path, "--precompute-path", pre_path],
+        totals, setup_s, lines, served, _, _ = drive_server(
+            "phase 5", card, ["--setup-path", setup_path, "--precompute-path", pre_path,
+                              "--msm-devices", ",".join(ONE_SHARD)],
             env={"FOURIER_LOG": "debug"}, fixed_row=row_strs, setup_kernels=())
         for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
             check(totals[k] > 0, f"the file-loaded server launched no {k} kernel")
@@ -1020,11 +1087,12 @@ def phase5_files(card, setup_in_memory_s):
             f"{_log_seconds(lines, 'Reading trusted setup'):.3f} s, loading the "
             f"precompute file {_log_seconds(lines, 'Loading Precomputations'):.3f} s) vs "
             f"{setup_in_memory_s:.3f} s generated in memory (phase 4); {card}")
+        sharded = phase5_sharded(card, setup_path, served, row_strs, phase4_ms)
 
         t0 = time.perf_counter()
         COUNTERS.reset()
         b = PianoBackend.setup(SetupConfig(scale=SCALE, machines_scale=1, setup_path=setup_path,
-                                           generate_setup=False), "cuda")
+                                           generate_setup=False), "cuda", ONE_SHARD)
         torch.cuda.synchronize()
         log(f"phase 5: in-process backend from the setup file alone, tables regenerated, "
             f"in {time.perf_counter() - t0:.3f} s")
@@ -1037,15 +1105,18 @@ def phase5_files(card, setup_in_memory_s):
         check(served == local, "the file-loaded server's commitment differs from the one "
                                "of tables regenerated from the setup file")
         log("phase 5: loaded tables commit like regenerated ones (byte for byte)")
-        return totals, b, limbs
+        return totals, b, limbs, sharded
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
 
 def phase6_tableless(b, limbs):
     """Row 0 without its table (tableless msm at T = 2^(SCALE-1)) must give
-    the tabled bytes; the pinned transcript's 8-point rows without tables
-    take msm_naive."""
+    the tabled bytes, on one shard and over four shards of cuda:0 (the
+    points split, msm_fused_sharded at the window of 2^(SCALE-3) points);
+    the pinned transcript's 8-point rows without tables take msm_naive."""
+    import dataclasses
+
     import torch
 
     from fourier_tpu_torch.constants import R
@@ -1062,12 +1133,12 @@ def phase6_tableless(b, limbs):
 
     alpha = 0x1234567890ABCDEF
 
-    def commit_open(label):
+    def commit_open(label, backend=b):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        com = b.worker_commit(0, limbs)
+        com = backend.worker_commit(0, limbs)
         t1 = time.perf_counter()
-        y, pi = b.worker_open(0, limbs, alpha)
+        y, pi = backend.worker_open(0, limbs, alpha)
         t2 = time.perf_counter()
         log(f"phase 6: {label} worker_commit {(t1 - t0) * 1e3:.3f} ms, worker_open "
             f"{(t2 - t1) * 1e3:.3f} ms (in process, T = {limbs.shape[1]})")
@@ -1087,12 +1158,26 @@ def phase6_tableless(b, limbs):
     for k in ("accumulate", "g1_tree_reduce", "horner_2k"):
         check(big[k] > 0, f"the tableless MSM launched no {k} kernel")
     log(f"phase 6: tableless equals tabled at T = {limbs.shape[1]}; launches {big}")
+    shards = 4
+    split = PianoBackend(b.fft, dataclasses.replace(b.settings, precompute=None), "cuda",
+                         ["cuda:0"] * shards)
+    commit_open(f"tableless over {shards} shards (warm-up)", split)
+    COUNTERS.reset()
+    tableless_split = commit_open(f"tableless over {shards} shards of cuda:0", split)
+    big_split = dict(COUNTERS.launches)
+    check(tableless_split == tableless,
+          f"the tableless commit/open over {shards} shards differs from one shard's")
+    check(big_split["accumulate"] == 2 * shards and big_split["horner_2k"] == 2 * shards
+          and big_split["g1_tree_reduce"] > 0 and big_split["g1_add"] == 0,
+          f"the tableless commit and open over {shards} shards launched {big_split} (expected "
+          f"K1 and K4 {2 * shards} times each, the tree kernel, no K2)")
+    log(f"phase 6: tableless over {shards} shards equals one shard's; launches {big_split}")
 
     with open(FIXTURE) as fh:
         fx = json.load(fh)
     fft = PianoFFTSettings(fx["scale"], fx["machines_scale"], "cuda")
     settings = generate_trusted_setup(fft, tuple(bytes.fromhex(h) for h in fx["secrets_hex"]))
-    small = PianoBackend(fft, settings)                  # no precompute: every row tableless
+    small = PianoBackend(fft, settings, "cuda", ONE_SHARD)   # no precompute: every row tableless
     real = msm_mod.msm_naive
     calls = []
 
@@ -1143,7 +1228,7 @@ def phase6_tableless(b, limbs):
         f"launches {naive}; a 64-point msm_naive equals refimpl ({wide_ms:.3f} ms wall), "
         f"launches {calls[-1][1]}; every msm_naive call launched the ladder once, K3 and the "
         f"batched K5 never, K2 at most ceil(log2 n) times")
-    return big, naive
+    return big, naive, big_split
 
 
 def phase6_univariate(b):
@@ -1446,14 +1531,23 @@ def main() -> int:
         timed_phase("phase 2", phase2_transcript, "cuda")
         timed_phase("phase 3", phase3_oracle, "cuda")
         torch.cuda.empty_cache()
-        served, setup_s, per_request = timed_phase("phase 4", phase4_main_path, card)
-        from_files, backend, limbs = timed_phase("phase 5", phase5_files, card, setup_s)
-        tableless, naive = timed_phase("phase 6", phase6_tableless, backend, limbs)
+        served, setup_s, per_request, phase4_ms = timed_phase("phase 4", phase4_main_path, card)
+        from_files, backend, limbs, (sharded, sharded_requests) = timed_phase(
+            "phase 5", phase5_files, card, setup_s, phase4_ms)
+        tableless, naive, tableless_split = timed_phase("phase 6", phase6_tableless, backend,
+                                                        limbs)
         univariate = timed_phase("phase 6 (univariate)", phase6_univariate, backend)
         rounds = timed_phase("phase 6 (round)", phase6_round, backend, limbs, card)
         del backend
         torch.cuda.empty_cache()
-        client_round, client_requests = timed_phase("phase 7", phase7_client_round, card)
+        shard_env = os.environ.get("FOURIER_SHARD_MSM")
+        os.environ["FOURIER_SHARD_MSM"] = "0"            # the client's server: one card
+        try:
+            client_round, client_requests = timed_phase("phase 7", phase7_client_round, card)
+        finally:
+            os.environ.pop("FOURIER_SHARD_MSM")
+            if shard_env is not None:
+                os.environ["FOURIER_SHARD_MSM"] = shard_env
         timed_phase("phase 8", phase8_g2, card)
         check(not any(m == "jax" or m.startswith("jax.") or m == "fourier_tpu"
                       or m.startswith("fourier_tpu.") for m in sys.modules),
@@ -1461,11 +1555,14 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    paths = {"server_in_memory_s20": served, "server_from_files_s20": from_files,
-             "tableless_T2^19": tableless, "msm_naive_s4": naive, **univariate, **rounds,
+    paths = {"server_in_memory_s20": served, "server_from_files_s20": from_files, **sharded,
+             "tableless_T2^19": tableless, "tableless_sharded4_T2^19": tableless_split,
+             "msm_naive_s4": naive, **univariate, **rounds,
              "client_round_s20_m2": client_round}
-    per_request = {f"{m} ({phase})": c for phase, requests in (("phase 4", per_request),
-                                                               ("phase 7", client_requests))
+    per_request = {f"{m} ({phase})": c for phase, requests in
+                   (("phase 4", per_request),
+                    *((f"phase 5, {path}", r) for path, r in sharded_requests.items()),
+                    ("phase 7", client_requests))
                    for m, c in requests.items()}
     for path, counts in paths.items():
         log(f"launches on path {path}: {dict((k, counts[k]) for k in KERNEL_INFO)}")

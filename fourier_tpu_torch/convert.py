@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.piano import PianoPrecompute, PianoSettings
+from .models.piano import PianoBackend, PianoFFTSettings, PianoPrecompute, PianoSettings
 from .ops import curve as cv
 from .ops.curve import G1Aff, G1Jac
 from .ops.limbs import vec_to_ints
@@ -63,6 +63,14 @@ def settings_from_arrays(src, device="cuda") -> PianoSettings:
         precompute=(None if src.precompute is None
                     else precompute_from_arrays(src.precompute, device)),
     )
+
+
+def backend_from_arrays(src, device="cuda", msm_devices=None) -> PianoBackend:
+    """The reference's backend (its fft's n and m, its settings with their
+    tables) as a port backend on `device`, its row MSMs split over
+    `msm_devices` (PianoBackend's default where None)."""
+    fft = PianoFFTSettings(src.fft.n, src.fft.m, device)
+    return PianoBackend(fft, settings_from_arrays(src.settings, device), device, msm_devices)
 
 
 def prove_inputs_from_arrays(args, device="cuda") -> tuple:

@@ -1,9 +1,14 @@
 """The PIANO/Pianist bivariate KZG protocol over PyTorch tensors.
 
-Port of ``fourier_tpu.models.piano``, single device.  A degree-N
-polynomial is split into M = 2^m rows of T = 2^t Lagrange coefficients;
-worker i commits and opens its row with one BGMW MSM against U row i's
-precomputed window table, the master aggregates on the host.  The
+Port of ``fourier_tpu.models.piano``.  A degree-N polynomial is split
+into M = 2^m rows of T = 2^t Lagrange coefficients; worker i commits and
+opens its row with one BGMW MSM against U row i's precomputed window
+table, the master aggregates on the host.  As in the reference, a
+worker's MSM is split over the local devices on its own (the backend's
+``msm_devices``, by default every visible card when the device is CUDA;
+``FOURIER_SHARD_MSM=0`` keeps one): each shard holds its slice of every
+row table on its device (``parallel/msm_fused_sharded.py``), while the Fr
+work of an open stays on the backend's device.  The
 opening quotient is built in evaluation form (barycentric y, then
 q(w^j) = (y - f_j) / (alpha - w^j)), as in the reference.  Verify and
 the master role run on the host (the port's ``refimpl`` and ``native``).
@@ -37,6 +42,9 @@ from ..ops import msm_fused as mf
 from ..ops.curve import G1Aff, G1Jac
 from ..ops.field import FR, batch_inverse_host
 from ..ops.ntt import get_domain
+from ..parallel.mesh import LocalMesh, local_mesh
+from ..parallel.msm_fused_sharded import (check_bucket_split, msm_fused_bgmw_local,
+                                          msm_fused_sharded)
 from ..runtime import io as rio
 
 logger = logging.getLogger("fourier_tpu")
@@ -159,7 +167,9 @@ class PianoSettings:
 class PianoPrecompute:
     """BGMW window tables: all W * n (window, point) rows of a table
     accumulate into one set of buckets (ops.msm_fused.msm_fused_bgmw).
-    The packed row form the K1 kernel reads is made once per table.
+    The packed row form the K1 kernel reads is made once per table, or,
+    for an MSM split over D shards, once per shard: D contiguous slices
+    of the rows, each on its shard's device (``shard_rows``).
 
     Only the U rows have tables: the master opens against the host points
     in PianoSettings.g_tau_y_host, so the reference's tau_Y table has no
@@ -175,18 +185,20 @@ class PianoPrecompute:
     MAX_TABLE_POINTS = 1 << 25
 
     @staticmethod
-    def window_for(n: int) -> int:
-        """The reference's table window on one device: small rows keep
-        c = 8, others follow ops.msm_fused.bgmw_auto_window."""
+    def window_for(n: int, shards: int = 1) -> int:
+        """The reference's table window for an MSM split over `shards`
+        devices (tables are built for the serving topology): small rows
+        keep c = 8, others follow ops.msm_fused.bgmw_auto_window."""
         if n < (1 << 12):
             return 8
-        return mf.bgmw_auto_window(n, shards=1)
+        return mf.bgmw_auto_window(n, shards=shards)
 
     @staticmethod
-    def generate(settings: PianoSettings, c: int | None = None) -> "PianoPrecompute":
+    def generate(settings: PianoSettings, c: int | None = None,
+                 shards: int = 1) -> "PianoPrecompute":
         u = settings.u
         L, m, t_len = u.x.shape
-        c = c or PianoPrecompute.window_for(t_len)
+        c = c or PianoPrecompute.window_for(t_len, shards)
         n_windows = -(-256 // c)
         if t_len * n_windows > PianoPrecompute.MAX_TABLE_POINTS:
             logger.warning(
@@ -214,18 +226,52 @@ class PianoPrecompute:
             self._packed[i] = mf.pack_points(self.u_rows[i])
         return self._packed[i]
 
+    def shard_rows(self, i: int, devices) -> list:
+        """Row i's table split over len(devices) shards: for shard d, its
+        d-th contiguous slice of the rows, packed, and of the infinity
+        mask, on devices[d]."""
+        key = (i, tuple(str(d) for d in devices))
+        if key not in self._packed:
+            table, D = self.u_rows[i], len(devices)
+            k = table.x.shape[-1] // D
+            self._packed[key] = [
+                (mf.pack_points(G1Aff(*(a[..., d * k:(d + 1) * k] for a in table))).to(dev),
+                 table.inf[d * k:(d + 1) * k].to(dev)) for d, dev in enumerate(devices)]
+        return self._packed[key]
 
-def _msm_dispatch(settings: PianoSettings, i: int, scalars) -> G1Jac:
-    """MSM of row i's scalars against U row i, the single-device branches
-    of the reference: the BGMW table where the row has one, else the
-    tableless MSM (msm_naive up to 64 points)."""
+
+def msm_mesh(device, msm_devices=None) -> LocalMesh | None:
+    """The shards of a worker's MSM: None (one device) where
+    FOURIER_SHARD_MSM=0 or the list has one entry.  msm_devices defaults
+    to every visible card when `device` is CUDA, else to [device]."""
+    if os.environ.get("FOURIER_SHARD_MSM", "1") == "0":
+        return None
+    if msm_devices is None and torch.device(device).type != "cuda":
+        msm_devices = [device]
+    return local_mesh(msm_devices)
+
+
+def _msm_dispatch(settings: PianoSettings, i: int, scalars,
+                  mesh: LocalMesh | None = None) -> G1Jac:
+    """MSM of row i's scalars against U row i, the reference's branches in
+    its order: the BGMW table where the row has one, split over the mesh
+    where it divides the table's rows; rows of at most 64 points through
+    msm_naive, on one device; the tableless MSM, split along the points at
+    the shards' window where the mesh divides them; else one device's."""
     precompute = settings.precompute
     table = None if precompute is None else precompute.u_rows[i]
     if table is not None:
+        if mesh is not None and table.x.shape[-1] % mesh.size == 0:
+            return msm_fused_bgmw_local(mesh, precompute.shard_rows(i, mesh.devices), scalars,
+                                        precompute.c)
         return mf.msm_fused_bgmw(precompute.packed_row(i), table.inf, scalars, precompute.c)
     points = settings.u_row(i)
-    if points.x.shape[-1] <= 64:
+    n = points.x.shape[-1]
+    if n <= 64:
         return msm_mod.msm_naive(points, scalars)
+    if mesh is not None and n % mesh.size == 0:
+        c = msm_mod._auto_window(n // mesh.size)
+        return mesh.run(lambda shard: msm_fused_sharded(points, scalars, c, shard))[0]
     return msm_mod.msm(points, scalars)
 
 
@@ -346,14 +392,35 @@ def _poly_eval_device(f_mont, x_mont):
 # ---------------------------------------------------------------------------
 
 class PianoBackend:
-    """Worker/master commit-open-verify engine on one torch device.
+    """Worker/master commit-open-verify engine on one torch device, its
+    row MSMs split over `msm_devices` (see msm_mesh; a device may repeat).
     Host-facing values are Python ints and refimpl affine points; row
-    coefficients are [FR_LIMBS, T] canonical limbs (numpy or lists)."""
+    coefficients are [FR_LIMBS, T] canonical limbs (numpy or lists).
 
-    def __init__(self, fft: PianoFFTSettings, settings: PianoSettings, device=None):
+    With several shards, every row table must split over them: a shard
+    count that cannot split the tables' bucket space raises ValueError
+    here, once, and each shard's slices of the tables are placed on its
+    device here too."""
+
+    def __init__(self, fft: PianoFFTSettings, settings: PianoSettings, device=None,
+                 msm_devices=None):
         self.fft = fft
         self.settings = settings
         self.device = torch.device(device) if device is not None else fft.device
+        self.mesh = msm_mesh(self.device, msm_devices)
+        pc = settings.precompute
+        if self.mesh is not None and pc is not None:
+            for i, table in enumerate(pc.u_rows):
+                if table is not None:
+                    signed = table.x.shape[-1] // fft.T == mf.signed_window_count(pc.c)
+                    check_bucket_split(pc.c, signed, self.mesh.size)
+                    if table.x.shape[-1] % self.mesh.size == 0:
+                        pc.shard_rows(i, self.mesh.devices)
+
+    @property
+    def msm_devices(self) -> list:
+        """The devices the row MSMs run on, one a shard."""
+        return [self.device] if self.mesh is None else list(self.mesh.devices)
 
     # -- utils ---------------------------------------------------------------
 
@@ -405,7 +472,7 @@ class PianoBackend:
     # -- protocol: worker side ---------------------------------------------------
 
     def _row_msm(self, i: int, scalars) -> tuple:
-        out = _msm_dispatch(self.settings, i, scalars)
+        out = _msm_dispatch(self.settings, i, scalars, self.mesh)
         return cv.jac_to_int_points(_lift(out))[0]
 
     def worker_commit(self, i: int, coeffs):
@@ -474,10 +541,14 @@ class PianoBackend:
     # -- construction ------------------------------------------------------------
 
     @staticmethod
-    def setup(cfg: SetupConfig, device="cuda") -> "PianoBackend":
+    def setup(cfg: SetupConfig, device="cuda", msm_devices=None) -> "PianoBackend":
         """The SRS and the window tables, each generated in memory or
-        loaded from its file (the reference's piano.rs:87-122)."""
+        loaded from its file (the reference's piano.rs:87-122); generated
+        tables take the window of the MSM's shard count.  A file's tables
+        serve at any shard count that splits their buckets."""
         fft = PianoFFTSettings(cfg.scale, cfg.machines_scale, device)
+        mesh = msm_mesh(fft.device, msm_devices)
+        shards = 1 if mesh is None else mesh.size
         if cfg.generate_setup:
             secrets = (py_secrets.token_bytes(32), py_secrets.token_bytes(32))
             settings = timed("Generating Trusted Setup",
@@ -487,16 +558,18 @@ class PianoBackend:
                              lambda: rio.load_setup(cfg.setup_path, cfg.compressed, device))
         if cfg.generate_precompute:
             settings.precompute = timed("Generating Precomputations",
-                                        lambda: PianoPrecompute.generate(settings))
+                                        lambda: PianoPrecompute.generate(settings,
+                                                                         shards=shards))
         else:
             settings.precompute = timed("Loading Precomputations from file",
                                         lambda: rio.load_precompute(cfg.precompute_path, device))
-        return PianoBackend(fft, settings, device)
+        return timed("Placing the tables on the MSM's shards",
+                     lambda: PianoBackend(fft, settings, device, msm_devices))
 
     @staticmethod
-    def setup_and_save(cfg: SetupConfig, device="cuda") -> "PianoBackend":
+    def setup_and_save(cfg: SetupConfig, device="cuda", msm_devices=None) -> "PianoBackend":
         """setup, then write the SRS and the tables to the paths given."""
-        backend = PianoBackend.setup(cfg, device)
+        backend = PianoBackend.setup(cfg, device, msm_devices)
         if cfg.setup_path:
             rio.save_setup(backend.settings, cfg.setup_path, cfg.compressed)
         if cfg.precompute_path:

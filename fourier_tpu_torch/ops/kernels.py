@@ -29,11 +29,14 @@ The kernels are built with nvcc for sm_90a at first use, one nvcc per
 source, all started together, then linked into one library in
 ``fourier_tpu_torch/_build`` under a name keyed by a hash of the sources
 and flags; the library is bound through a plain C interface with ctypes.
-A wrapper given CUDA tensors launches its kernel on the current stream or
-raises; given CPU tensors it runs the plain twin.  Every launch adds one to
-``COUNTERS.launches[name]``; lanes that took the doubling branch of a
-complete addition are summed on the device into ``COUNTERS.collisions``
-(the ladder's steps under g1_madd).
+A wrapper given CUDA tensors launches its kernel on their device's current
+stream or raises; given CPU tensors it runs the plain twin.  It launches
+from the context of its tensors' device, whatever the calling thread's
+current device, so threads working for several cards (the in-process
+shards of parallel/mesh.py) may launch at once.  Every launch adds one to
+``COUNTERS.launches[name]``, under a lock; lanes that took the doubling
+branch of a complete addition are summed on the device into
+``COUNTERS.collisions`` (the ladder's steps under g1_madd).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -84,22 +88,31 @@ TREE_MAX_TREES = 4
 
 class KernelCounters:
     """Launch counts (host integers) and doubling-branch lanes (device
-    int64 scalars, one per kernel and device; reading them synchronises)."""
+    int64 scalars, one per kernel and device; reading them synchronises).
+    Threads may launch at once: counting and creating a buffer take a
+    lock."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.launches = dict.fromkeys(KERNELS, 0)
         self._collisions: dict = {}
 
     def reset(self):
-        self.launches = dict.fromkeys(KERNELS, 0)
-        for t in self._collisions.values():
-            t.zero_()
+        with self._lock:
+            self.launches = dict.fromkeys(KERNELS, 0)
+            for t in self._collisions.values():
+                t.zero_()
+
+    def count(self, name: str):
+        with self._lock:
+            self.launches[name] += 1
 
     def collision_buffer(self, name: str, device) -> torch.Tensor:
         key = (name, str(device))
-        if key not in self._collisions:
-            self._collisions[key] = torch.zeros(1, dtype=torch.int64, device=device)
-        return self._collisions[key]
+        with self._lock:
+            if key not in self._collisions:
+                self._collisions[key] = torch.zeros(1, dtype=torch.int64, device=device)
+            return self._collisions[key]
 
     def collisions(self) -> dict:
         out = dict.fromkeys(KERNELS, 0)
@@ -157,9 +170,18 @@ def _compile_and_link(path: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-@functools.cache
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library; threads
+    that ask at once wait for one build."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+@functools.cache
+def _build() -> ctypes.CDLL:
     path = os.path.join(BUILD_DIR, f"libfourier_kernels-{_digest()}.so")
     if not os.path.exists(path):
         _compile_and_link(path)
@@ -188,6 +210,18 @@ def _check(lib, name: str, rc: int):
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call the library's fk_<name>(*args, stream of dev) from dev's
+    context (the launch, and g1_tree_reduce's cudaFuncSetAttribute, act on
+    the calling thread's current device), count the launch and raise if it
+    failed."""
+    lib = build()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, "fk_" + name)(*args, _stream(dev))
+    COUNTERS.count(name)
+    _check(lib, name, rc)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -290,7 +324,6 @@ def accumulate(table, index, start, count) -> G1Jac:
         return accumulate_plain(table, index, start, count, piece=PIECE)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = build()
     table, index = table.contiguous(), index.contiguous()
     start, count = start.contiguous(), count.contiguous()
     piece_end = torch.cumsum((count + (PIECE - 1)) // PIECE, 0, dtype=torch.int32)
@@ -299,12 +332,10 @@ def accumulate(table, index, start, count) -> G1Jac:
     max_pieces = -(-index.shape[0] // PIECE) + S
     partial = torch.empty((3 * FP_LIMBS // 2, max_pieces), dtype=torch.int32, device=dev)
     out = _empty_like_coords(S, dev)
-    rc = lib.fk_accumulate(
-        _ptr(table), _ptr(index), _ptr(start), _ptr(count), _ptr(piece_end), S, PIECE,
-        max_pieces, _ptr(partial), *map(_ptr, out),
-        _ptr(COUNTERS.collision_buffer("accumulate", dev)), _stream(dev))
-    COUNTERS.launches["accumulate"] += 1
-    _check(lib, "accumulate", rc)
+    _launch("accumulate", dev,
+            _ptr(table), _ptr(index), _ptr(start), _ptr(count), _ptr(piece_end), S, PIECE,
+            max_pieces, _ptr(partial), *map(_ptr, out),
+            _ptr(COUNTERS.collision_buffer("accumulate", dev)))
     return G1Jac(*out)
 
 
@@ -327,13 +358,10 @@ def g1_add(p: G1Jac, q: G1Jac) -> G1Jac:
     if dev.type == "cpu":
         out = g1_add_plain(G1Jac(*a), G1Jac(*b))
     elif dev.type == "cuda":
-        lib = build()
         n = a[0].shape[1]
         out = _empty_like_coords(n, dev)
-        rc = lib.fk_g1_add(*map(_ptr, a + b + out), n,
-                           _ptr(COUNTERS.collision_buffer("g1_add", dev)), _stream(dev))
-        COUNTERS.launches["g1_add"] += 1
-        _check(lib, "g1_add", rc)
+        _launch("g1_add", dev, *map(_ptr, a + b + out), n,
+                _ptr(COUNTERS.collision_buffer("g1_add", dev)))
     else:
         raise ValueError(f"unsupported device {dev}")
     return G1Jac(*(c.reshape(shape) for c in out))
@@ -440,12 +468,8 @@ def g1_tree_reduce(trees) -> list:
                  lanes, fan_levels]
         batch = [s for d, s in enumerate(p.x.shape) if d not in (0, axis)]
         out[i] = G1Jac(*(c.reshape(FP_LIMBS, *batch, to).movedim(-1, axis) for c in roots))
-    lib = build()
-    rc = lib.fk_g1_tree_reduce(len(todo), (ctypes.c_int64 * len(desc))(*desc), TREE_THREADS,
-                               _ptr(COUNTERS.collision_buffer("g1_tree_reduce", dev)),
-                               _stream(dev))
-    COUNTERS.launches["g1_tree_reduce"] += 1
-    _check(lib, "g1_tree_reduce", rc)
+    _launch("g1_tree_reduce", dev, len(todo), (ctypes.c_int64 * len(desc))(*desc),
+            TREE_THREADS, _ptr(COUNTERS.collision_buffer("g1_tree_reduce", dev)))
     return out
 
 
@@ -472,13 +496,10 @@ def g1_madd(p: G1Jac, q: G1Aff) -> G1Jac:
     if dev.type == "cpu":
         out = g1_madd_plain(G1Jac(*a), G1Aff(*b, inf))
     elif dev.type == "cuda":
-        lib = build()
         n = a[0].shape[1]
         out = _empty_like_coords(n, dev)
-        rc = lib.fk_g1_madd(*map(_ptr, a + b), _ptr(inf), *map(_ptr, out), n,
-                            _ptr(COUNTERS.collision_buffer("g1_madd", dev)), _stream(dev))
-        COUNTERS.launches["g1_madd"] += 1
-        _check(lib, "g1_madd", rc)
+        _launch("g1_madd", dev, *map(_ptr, a + b), _ptr(inf), *map(_ptr, out), n,
+                _ptr(COUNTERS.collision_buffer("g1_madd", dev)))
     else:
         raise ValueError(f"unsupported device {dev}")
     return G1Jac(*(c.reshape(shape) for c in out))
@@ -520,15 +541,10 @@ def g1_madd_ladder(points: G1Aff, scalars, nbits: int) -> G1Jac:
     if dev.type == "cpu":
         out = g1_madd_ladder_plain(G1Aff(*xy, inf), sc, nbits)
     elif dev.type == "cuda":
-        lib = build()
         n = xy[0].shape[1]
         out = _empty_like_coords(n, dev)
-        rc = lib.fk_g1_madd_ladder(*map(_ptr, xy), _ptr(inf), _ptr(sc), nbits,
-                                   *map(_ptr, out), n,
-                                   _ptr(COUNTERS.collision_buffer("g1_madd", dev)),
-                                   _stream(dev))
-        COUNTERS.launches["g1_madd_ladder"] += 1
-        _check(lib, "g1_madd_ladder", rc)
+        _launch("g1_madd_ladder", dev, *map(_ptr, xy), _ptr(inf), _ptr(sc), nbits,
+                *map(_ptr, out), n, _ptr(COUNTERS.collision_buffer("g1_madd", dev)))
     else:
         raise ValueError(f"unsupported device {dev}")
     return G1Jac(*(c.reshape(shape) for c in out))
@@ -552,12 +568,9 @@ def g1_dbl(p: G1Jac, repeat: int = 1) -> G1Jac:
     if dev.type == "cpu":
         out = g1_dbl_plain(G1Jac(*a), repeat)
     elif dev.type == "cuda":
-        lib = build()
         n = a[0].shape[1]
         out = _empty_like_coords(n, dev)
-        rc = lib.fk_g1_dbl(*map(_ptr, a + out), n, repeat, _stream(dev))
-        COUNTERS.launches["g1_dbl"] += 1
-        _check(lib, "g1_dbl", rc)
+        _launch("g1_dbl", dev, *map(_ptr, a + out), n, repeat)
     else:
         raise ValueError(f"unsupported device {dev}")
     return G1Jac(*(c.reshape(shape) for c in out))
@@ -641,12 +654,8 @@ def horner_2k(terms: G1Jac, width: int) -> G1Jac:
         return horner_2k_plain(G1Jac(*t), width)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = build()
     out = _empty_like_coords(1, dev)
     scratch = torch.empty(blocks * 3 * FP_LIMBS // 2 + 1, dtype=torch.int32, device=dev)
-    rc = lib.fk_horner_2k(*map(_ptr, t), n // width, width, rp, tpb, _ptr(scratch),
-                          *map(_ptr, out),
-                          _ptr(COUNTERS.collision_buffer("horner_2k", dev)), _stream(dev))
-    COUNTERS.launches["horner_2k"] += 1
-    _check(lib, "horner_2k", rc)
+    _launch("horner_2k", dev, *map(_ptr, t), n // width, width, rp, tpb, _ptr(scratch),
+            *map(_ptr, out), _ptr(COUNTERS.collision_buffer("horner_2k", dev)))
     return G1Jac(*out)

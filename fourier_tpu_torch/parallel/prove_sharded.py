@@ -4,7 +4,9 @@ evaluation-form open, then the master's aggregation.
 Port of ``fourier_tpu.parallel.prove_sharded``.  What a deployment does
 with M servers and a client moving base64 between them runs here as one
 function over the M rows.  On one device it is one call in process; with
-a group of D ranks each rank holds M / D rows (``prove_in_specs``), and
+a group of D ranks (processes, or the in-process shards of
+``mesh.LocalMesh``, as the reference runs over a local mesh) each rank
+holds M / D rows (``prove_in_specs``), and
 the per-worker commitments, evals and proofs are all-gathered before the
 master step, which every rank then computes alike:
 
@@ -34,7 +36,7 @@ from ..ops.curve import G1Aff, G1Jac
 from ..ops.field import FR
 from ..ops.limbs import ints_to_vec
 from ..ops.ntt import get_domain
-from .mesh import Group, all_gather_last, size_rank
+from .mesh import all_gather_last, shard_device, size_rank
 
 
 def _horner_eval(coeffs_m, x_m):
@@ -64,12 +66,14 @@ def prove_in_specs(table_c: int | None = None) -> tuple:
     return base if table_c is None else base + (0, 0)
 
 
-def local_inputs(args, group: Group | None, table_c: int | None = None) -> tuple:
+def local_inputs(args, group, table_c: int | None = None) -> tuple:
     """This rank's share of prove's arguments: its M / D rows of every
-    argument with a worker axis (a slice of the row tables' sequences)."""
+    argument with a worker axis (a slice of the row tables' sequences),
+    everything on the rank's device."""
     D, d = size_rank(group)
     if D == 1:
         return tuple(args)
+    dev = shard_device(group, args[0].device)
     out = []
     for a, axis in zip(args, prove_in_specs(table_c)):
         if axis is not None:
@@ -78,11 +82,11 @@ def local_inputs(args, group: Group | None, table_c: int | None = None) -> tuple
                 raise ValueError(f"{m} workers do not divide over {D} ranks")
             k = m // D
             a = a.narrow(axis, d * k, k) if isinstance(a, torch.Tensor) else a[d * k:(d + 1) * k]
-        out.append(a)
+        out.append(a.to(dev) if isinstance(a, torch.Tensor) else [t.to(dev) for t in a])
     return tuple(out)
 
 
-def build_distributed_prove(group: Group | None = None, table_c: int | None = None):
+def build_distributed_prove(group=None, table_c: int | None = None):
     """Returns
 
         prove(u_x, u_y, u_inf, g_ty_x, g_ty_y, g_ty_inf, coeffs, alpha,
@@ -90,7 +94,9 @@ def build_distributed_prove(group: Group | None = None, table_c: int | None = No
               [, ut_packed, ut_inf]) -> dict
 
     over this rank's share of the arguments (``local_inputs``; on one
-    device, all of them).  coeffs, alpha and beta are canonical limbs
+    device, all of them).  group: None (one device), a process group
+    (``mesh.Group``), or a ``mesh.LocalShard``, prove then being called
+    from ``LocalMesh.run`` once for every shard.  coeffs, alpha and beta are canonical limbs
     ([FR_LIMBS, M/D, T], [FR_LIMBS, 1]); the rest as
     ``prove_inputs_from_backend`` makes them.  With table_c set the row
     MSMs run over the packed BGMW tables ut_packed, a sequence of M/D

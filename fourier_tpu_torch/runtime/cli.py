@@ -3,12 +3,17 @@
 Port of ``fourier_tpu.runtime.cli`` with the reference's flags, defaults
 and checks (RunArgs, SetupArgs and SetupArgs::can_proceed, reference
 src/cli.rs:17-123), plus ``--device`` (default ``cuda``) on both
-subcommands.  `run` starts the RPC server, generating the SRS and the
-tables in memory or loading them from ``--setup-path`` and
-``--precompute-path``; `setup` generates and saves them, or converts an
-existing setup file between the compressed and uncompressed encodings.
-Nothing moves to the CPU unless ``--device cpu`` says so: with a CUDA
-device and no visible card both subcommands refuse to start.
+subcommands, and ``--msm-devices``: the comma list of torch devices a
+worker's MSM splits over, one shard each (a device may repeat; default
+every visible card under ``--device cuda``, the device alone otherwise;
+``FOURIER_SHARD_MSM=0`` keeps one).  `run` starts the RPC server,
+generating the SRS and the tables in memory or loading them from
+``--setup-path`` and ``--precompute-path``; `setup` generates and saves
+them (tables sized for the shard count), or converts an existing setup
+file between the compressed and uncompressed encodings.  Nothing moves to
+the CPU unless ``--device cpu`` says so: with a CUDA device and no visible
+card both subcommands refuse to start, and so does a shard count that
+cannot split the tables.
 """
 
 from __future__ import annotations
@@ -27,6 +32,20 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--uncompressed", action="store_true", default=False)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the hand-written kernels) or cpu")
+    p.add_argument("--msm-devices", type=_device_list, default=None,
+                   help="comma list of torch devices the MSM splits over, one shard "
+                        "each (e.g. cuda:0,cuda:1); default every visible card under "
+                        "--device cuda")
+
+
+def _device_list(text: str) -> list[str]:
+    import torch
+
+    devices = [d.strip() for d in text.split(",")]
+    try:
+        return [str(torch.device(d)) for d in devices]
+    except RuntimeError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,14 +92,18 @@ def can_proceed(args) -> bool:
 
 
 def _device(args):
-    """The torch device of the command, or None (logged) when it names
-    CUDA and no card is visible."""
+    """The torch device of the command, or None (logged) when it or an
+    MSM device names CUDA and no card, or no such card, is visible."""
     import torch
 
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        log.error("no CUDA device is visible; pass --device cpu to run on the CPU")
-        return None
+    for d in [device] + [torch.device(m) for m in args.msm_devices or ()]:
+        if d.type == "cuda" and not torch.cuda.is_available():
+            log.error("no CUDA device is visible; pass --device cpu to run on the CPU")
+            return None
+        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+            log.error("%s is not visible (%d cards)", d, torch.cuda.device_count())
+            return None
     return device
 
 
@@ -89,6 +112,7 @@ def cmd_run(args) -> int:
     if device is None:
         return 2
     from ..models.piano import SetupConfig
+    from ..parallel.msm_fused_sharded import ShardSplitError
     from .server import ServerConfig, start_rpc_server
 
     # an omitted or missing path means generate (reference config.rs:174-200)
@@ -99,8 +123,12 @@ def cmd_run(args) -> int:
         generate_setup=args.setup_path is None or not os.path.exists(args.setup_path),
         generate_precompute=(args.precompute_path is None
                              or not os.path.exists(args.precompute_path)))
-    start_rpc_server(ServerConfig(host=args.host, port=args.port, device=str(device),
-                                  backend=backend))
+    try:
+        start_rpc_server(ServerConfig(host=args.host, port=args.port, device=str(device),
+                                      backend=backend, msm_devices=args.msm_devices))
+    except ShardSplitError as e:
+        log.error("the MSM's shards cannot split the tables: %s", e)
+        return 2
     return 0
 
 
@@ -120,7 +148,8 @@ def cmd_setup(args) -> int:
         compressed=not args.uncompressed,
         generate_setup=args.generate_setup or not os.path.exists(args.setup_path),
         generate_precompute=(args.generate_precompute
-                             or not os.path.exists(args.precompute_path))), device)
+                             or not os.path.exists(args.precompute_path))), device,
+        args.msm_devices)
     return 0
 
 

@@ -153,7 +153,10 @@ def _array_to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 def load_precompute(path: str, device="cuda"):
-    """The row tables of a precompute file (FTPC, or the legacy .npz)."""
+    """The row tables of a precompute file (FTPC, or the legacy .npz), on
+    `device`.  A backend whose MSM splits over several shards places each
+    row's slices on them (PianoBackend), whatever c the file was written
+    at, where the shard count splits its buckets."""
     from ..models.piano import PianoPrecompute
 
     with open(path, "rb") as f:

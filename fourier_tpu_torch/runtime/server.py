@@ -4,8 +4,15 @@ Port of ``fourier_tpu.runtime.server`` on the port's backend, with the
 shared wire codec (``fourier_tpu.runtime.wire``, ``fourier_tpu.native``):
 any HTTP verb is served, responses are the bare result JSON and errors
 are ``{"message": ...}``.  After server start and after every device
-request the server logs the kernel launch counts of that step on a line
+request the server logs the kernel launch counts of that step, every MSM
+shard's launches together, on a line
 ``KERNEL_LAUNCHES {"step": ..., "launches": {...}}``.
+
+One server process serves one worker.  Its MSMs split over the devices of
+``ServerConfig.msm_devices`` (default: every visible card under a CUDA
+device), one thread a shard, as the reference's server splits them over
+its local mesh.  A shard count that cannot split the tables fails the
+start with ``ShardSplitError``, and the server does not retry it.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from . import wire
 
 from ..models.piano import PianoBackend, SetupConfig
 from ..ops.kernels import COUNTERS
+from ..parallel.msm_fused_sharded import ShardSplitError
 
 logger = logging.getLogger("fourier_tpu")
 
@@ -42,6 +50,9 @@ class ServerConfig:
     port: int = 1337
     device: str = "cuda"
     backend: SetupConfig = field(default_factory=SetupConfig)
+    # the MSM's shards, one a device (a device may repeat); None: every
+    # visible card under a CUDA device, else the device alone
+    msm_devices: list | None = None
 
 
 def log_launches(step: str) -> None:
@@ -261,9 +272,9 @@ class _HTTPHandler(BaseHTTPRequestHandler):
 
 
 def warm_up(backend: PianoBackend) -> None:
-    """Build the kernels (on a CUDA device) and run one commit, so the
-    first request pays neither."""
-    if backend.device.type == "cuda":
+    """Build the kernels once (on CUDA devices), then run one commit, which
+    runs on every shard of the MSM, so the first request pays neither."""
+    if any(d.type == "cuda" for d in backend.msm_devices):
         from ..ops import kernels
 
         kernels.build()
@@ -280,10 +291,12 @@ class Server:
     def _new_handler(self) -> RpcHandler:
         COUNTERS.reset()
         t0 = time.perf_counter()
-        backend = PianoBackend.setup(self.cfg.backend, self.cfg.device)
-        logger.info("setup took %.3f s (scale %d, machines scale %d, %s)",
-                    time.perf_counter() - t0, self.cfg.backend.scale,
-                    self.cfg.backend.machines_scale, self.cfg.device)
+        backend = PianoBackend.setup(self.cfg.backend, self.cfg.device, self.cfg.msm_devices)
+        pc = backend.settings.precompute
+        logger.info("setup took %.3f s (scale %d, machines scale %d, %s, MSM shards %s, "
+                    "table window c = %s)", time.perf_counter() - t0, self.cfg.backend.scale,
+                    self.cfg.backend.machines_scale, self.cfg.device,
+                    ",".join(str(d) for d in backend.msm_devices), pc and pc.c)
         log_launches("setup")
         COUNTERS.reset()
         t0 = time.perf_counter()
@@ -312,7 +325,9 @@ class Server:
 
 
 def start_rpc_server(cfg: ServerConfig, on_server=None) -> None:
-    """Run the server, restarting it two seconds after a failure."""
+    """Run the server, restarting it two seconds after a failure; a shard
+    count that cannot split the tables (ShardSplitError) is raised, as no
+    restart would serve it."""
     server = Server(cfg)
     if on_server is not None:
         on_server(server)
@@ -320,6 +335,8 @@ def start_rpc_server(cfg: ServerConfig, on_server=None) -> None:
         try:
             server.run()
             return
+        except ShardSplitError:
+            raise
         except Exception as e:
             logger.error("Error: %s", e)
             logger.info("Error starting server, retrying in 2 seconds...")

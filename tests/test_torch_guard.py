@@ -7,10 +7,12 @@ cannot do.
   jax and no fourier_tpu module loaded.
 - No port source (parallel/ included; nor chip_smoke.py, kernel_probe.py,
   sharded_msm_probe.py, the card-only kernel tests, their redundant-form
-  models, or the gloo tests, whose ranks import their module) imports jax
-  or any fourier_tpu module other than fourier_tpu_torch.
-- `run` refuses a CUDA device when none is visible; `setup` refuses what
-  the reference's can_proceed refuses, with exit code 1.
+  models, the gloo tests, whose ranks import their module, or the
+  in-process shards' tests) imports jax or any fourier_tpu module other
+  than fourier_tpu_torch.
+- `run` refuses a CUDA device when none is visible, and MSM shards that
+  cannot split the tables (exit code 2); `setup` refuses what the
+  reference's can_proceed refuses, with exit code 1.
 - chip_smoke.py exits non-zero with no result line when no card is seen.
 - The kernel wrappers check their arguments before anything launches.
 """
@@ -40,6 +42,7 @@ import fourier_tpu_torch.runtime.cli, fourier_tpu_torch.runtime.server, fourier_
 import fourier_tpu_torch.runtime.client, fourier_tpu_torch.models.bipoly, fourier_tpu_torch.ops.fp2
 import fourier_tpu_torch.parallel.mesh, fourier_tpu_torch.parallel.prove_sharded
 import fourier_tpu_torch.parallel.msm_fused_sharded, fourier_tpu_torch.parallel.multihost
+import fourier_tpu_torch.parallel.msm_sharded
 from fourier_tpu_torch.models.univariate import UnivariateKZG
 from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
                                             PianoPrecompute, generate_trusted_setup)
@@ -76,10 +79,12 @@ def test_port_sources_never_name_jax():
              os.path.join(ROOT, "tests", "test_torch_kernels.py"),
              os.path.join(ROOT, "tests", "torch_redundant.py"),
              os.path.join(ROOT, "tests", "test_torch_parallel.py"),
-             os.path.join(ROOT, "tests", "test_torch_multihost.py")]
+             os.path.join(ROOT, "tests", "test_torch_multihost.py"),
+             os.path.join(ROOT, "tests", "test_torch_local_mesh.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert os.path.join(PKG, "parallel", "prove_sharded.py") in files
+    assert os.path.join(PKG, "parallel", "msm_sharded.py") in files
     for path in files:
         with open(path) as fh:
             hit = pattern.search(fh.read())
@@ -94,7 +99,10 @@ def test_port_sources_never_name_jax():
      "Cannot compress and decompress at the same time"),
     (["setup", "--compress-existing", "--device", "cpu"], 1,
      "Cannot compress an already compressed file"),
-], ids=["args0", "args1", "args2", "args3"])
+    (["run", "--device", "cpu", "--scale", "4", "--machines-scale", "1", "--host",
+      "127.0.0.1", "--port", "0", "--msm-devices", "cpu,cpu,cpu"], 2,
+     "3 ranks do not divide the 256 buckets of c = 8"),
+], ids=["args0", "args1", "args2", "args3", "args4"])
 def test_cli_refuses_what_it_does_not_serve(args, code, message, tmp_path):
     existing = tmp_path / "setup"
     existing.write_bytes(b"keep")

@@ -23,6 +23,10 @@ all-identity terms, one finite lane and equal terms.  The round as one
 call (parallel/prove_sharded.py) runs on the card and on the CPU from one
 setup, tabled and tableless, at M = 4 rows of 16 points (msm_naive's
 ladder) and M = 1 row of 128 (the tableless msm), with equal outputs.
+Every wrapper launches on cuda:1 from a thread whose current device is
+cuda:0 (two cards or more), four threads launching at once keep the
+launch count exact, and the BGMW MSM over the in-process shards of
+parallel/mesh.py (four of one card, and every card) equals one card's.
 Comparisons are exact.
 """
 
@@ -386,3 +390,131 @@ def test_round_on_card_matches_cpu(cuda_device, n, m):
     got = outs["cpu", None]
     assert b.master_verify(got["master_com"], beta, alpha, got["z"], (got["pi0"], got["pi1"]))
 
+
+
+def _every_wrapper(dev):
+    """Each of the seven wrappers on tensors of dev, their results moved
+    to the CPU, beside the plain twins' (K1 on a BGMW MSM's runs)."""
+    ps, qs = _lanes(40)
+    tp = tcv.from_affine(tcv.affine_from_ints(ps))
+    tq_aff = tcv.affine_from_ints(qs)
+    tq = tcv.from_affine(tq_aff)
+    sc = torch.as_tensor(ints_to_vec([random.Random(7).randrange(R) for _ in range(40)],
+                                     FR_LIMBS).astype("int64"))
+    table = tmsm.bgmw_expand(tq_aff, 9)
+    packed = tmf.pack_points(table)
+    index, start, count, _ = tmf.bucket_runs(table.inf, tmf.bgmw_digits_for(sc, 9, 29)[0], 9,
+                                             tmf.bgmw_digits_for(sc, 9, 29)[1])
+    p, q, q_aff = _to(tp, dev), _to(tq, dev), _to(tq_aff, dev)
+    runs = [t.to(dev) for t in (packed, index, start, count)]
+    pairs = [
+        (kernels.accumulate(*runs), kernels.accumulate_plain(packed, index, start, count,
+                                                             kernels.PIECE)),
+        (kernels.g1_add(p, q), kernels.g1_add_plain(tp, tq)),
+        (kernels.g1_tree_reduce([(q, -1, 1)])[0], kernels.g1_tree_reduce_plain(tq, -1, 1)),
+        (kernels.g1_dbl(p, 2), kernels.g1_dbl_plain(tp, 2)),
+        (kernels.horner_2k(q, 8), kernels.horner_2k_plain(tq, 8)),
+        (kernels.g1_madd(p, q_aff), kernels.g1_madd_plain(tp, tq_aff)),
+        (kernels.g1_madd_ladder(q_aff, sc.to(dev), 64),
+         kernels.g1_madd_ladder_plain(tq_aff, sc, 64)),
+    ]
+    torch.cuda.synchronize(dev)
+    return [(tcv.G1Jac(*(c.cpu() for c in got)), want) for got, want in pairs]
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_another_card_from_any_thread(cuda_device):
+    """Every wrapper given tensors on cuda:1, from a thread whose current
+    device is cuda:0, launches on cuda:1 and equals its plain twin."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    import threading
+
+    out, errors = [], []
+
+    def body():
+        try:
+            torch.cuda.set_device(0)
+            out.extend(_every_wrapper(torch.device("cuda", 1)))
+            assert torch.cuda.current_device() == 0
+        except BaseException as e:              # read below
+            errors.append(e)
+
+    th = threading.Thread(target=body)
+    th.start()
+    th.join(600)
+    assert not th.is_alive() and not errors, errors
+    assert len(out) == len(kernels.KERNELS)
+    for got, want in out:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_with_four_threads(cuda_device):
+    """Four threads launch K3 at once, 200 times each (on the card's
+    current device, or one card each where there are four): the count is
+    exact, and so is each thread's result."""
+    import sys
+    import threading
+
+    n_cards = torch.cuda.device_count()
+    ps, _ = _lanes(16)
+    tp = tcv.from_affine(tcv.affine_from_ints(ps))
+    want = kernels.g1_dbl_plain(tp, 1)
+    kernels.build()
+    before = kernels.COUNTERS.launches["g1_dbl"]
+    results, errors = [None] * 4, []
+
+    def body(k):
+        try:
+            dev = torch.device("cuda", k % n_cards)
+            p = _to(tp, dev)
+            for _ in range(200):
+                out = kernels.g1_dbl(p)
+            torch.cuda.synchronize(dev)
+            results[k] = tcv.G1Jac(*(c.cpu() for c in out))
+        except BaseException as e:              # read below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=body, args=(k,)) for k in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    assert kernels.COUNTERS.launches["g1_dbl"] - before == 800
+    for got in results:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_bgmw_msm_over_shards_of_cards_matches_one_card(cuda_device):
+    """msm_fused_bgmw_sharded over a LocalMesh of 4 shards of the first
+    card, and over every card where there are two or more, equals one
+    card's MSM and refimpl."""
+    from fourier_tpu_torch.parallel import msm_fused_sharded as mfs
+    from fourier_tpu_torch.parallel.mesh import LocalMesh
+
+    rng = random.Random(0x5E)
+    n, c = 64, 9
+    points = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(n)]
+    scalars = [rng.randrange(R) for _ in range(n)]
+    table = tmsm.bgmw_expand(tcv.affine_from_ints(points), c)
+    packed, inf = tmf.pack_points(table).to(cuda_device), table.inf.to(cuda_device)
+    sc = torch.as_tensor(ints_to_vec(scalars, FR_LIMBS).astype("int64")).to(cuda_device)
+    want = tcv.jac_to_int_points(tcv.G1Jac(*(x[..., None] for x in tmf.msm_fused_bgmw(
+        packed, inf, sc, c))))[0]
+    assert want == g1_msm(points, scalars)
+    meshes = [["cuda:0"] * 4]
+    if torch.cuda.device_count() > 1:
+        meshes.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    for devices in meshes:
+        got = LocalMesh(devices).run(lambda shard: tcv.jac_to_int_points(tcv.G1Jac(
+            *(x[..., None] for x in mfs.msm_fused_bgmw_sharded(packed, inf, sc, c, shard))))[0])
+        assert got == [want] * len(devices), devices
