@@ -5,8 +5,8 @@ The same Pianist/PIANO bivariate KZG server over BLS12-381 and the same
 rewritten as a hand-written CUDA kernel for sm_90a (``ops.kernels``).
 The JAX package ``fourier_tpu`` stays the reference; this package imports
 neither jax nor any of its modules, and keeps its own copies of the
-framework-free ones (constants, ops.limbs, refimpl, native, runtime.wire,
-utils.timing).
+framework-free ones (constants, ops.limbs, refimpl, native, runtime.wire),
+and its own tracer (utils.trace, which holds the copy of utils.timing).
 
 Layer map (top to bottom):
   runtime.cli     - `python -m fourier_tpu_torch run|setup`

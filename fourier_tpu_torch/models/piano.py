@@ -34,7 +34,7 @@ from ..refimpl import curve as rc
 from ..refimpl import pairing as rp
 from ..refimpl import poly as rpoly
 from ..refimpl.field import hash_to_bls_field
-from ..utils.timing import timed
+from ..utils.trace import span, timed
 
 from ..ops import curve as cv
 from ..ops import msm as msm_mod
@@ -121,11 +121,16 @@ class PianoFFTSettings:
         limbs = np.asarray(limbs)
         if limbs.shape[-1] > dom.n:
             raise ValueError(f"input length {limbs.shape[-1]} exceeds domain {dom.n}")
-        if limbs.shape[-1] < dom.n:
-            pad = np.zeros(limbs.shape[:-1] + (dom.n - limbs.shape[-1],), np.uint32)
-            limbs = np.concatenate([limbs, pad], axis=-1)
-        x = FR.to_mont(_tensor(limbs, self.device))
-        return _host(FR.from_mont(dom.ntt(x, inverse=inverse)))
+        with span("fft", sync=True, n=dom.n):
+            if limbs.shape[-1] < dom.n:
+                pad = np.zeros(limbs.shape[:-1] + (dom.n - limbs.shape[-1],), np.uint32)
+                limbs = np.concatenate([limbs, pad], axis=-1)
+            with span("fft.upload"):
+                x = _tensor(limbs, self.device)
+            with span("fft.ntt", sync=True):
+                y = FR.from_mont(dom.ntt(FR.to_mont(x), inverse=inverse))
+            with span("fft.readback"):
+                return _host(y)
 
     def fft_left(self, values, inverse: bool) -> list[int]:
         return self.fft(values, True, inverse)
@@ -472,30 +477,39 @@ class PianoBackend:
     # -- protocol: worker side ---------------------------------------------------
 
     def _row_msm(self, i: int, scalars) -> tuple:
-        out = _msm_dispatch(self.settings, i, scalars, self.mesh)
-        return cv.jac_to_int_points(_lift(out))[0]
+        with span("msm", sync=True):
+            out = _msm_dispatch(self.settings, i, scalars, self.mesh)
+        with span("commit.lift"):
+            return cv.jac_to_int_points(_lift(out))[0]
 
     def worker_commit(self, i: int, coeffs):
         """MSM of the Lagrange coefficients against U row i."""
         if not 0 <= i < self.fft.M:
             raise ValueError(f"machine index {i} out of range")
-        return self._row_msm(i, self._coeffs_to_device(coeffs))
+        with span("worker_commit", T=self.fft.T):
+            with span("commit.upload"):
+                sc = self._coeffs_to_device(coeffs)
+            return self._row_msm(i, sc)
 
     def worker_open(self, i: int, coeffs, alpha: int):
         """(f_i(alpha), pi_0^{(i)}) via the evaluation-form quotient."""
         if not 0 <= i < self.fft.M:
             raise ValueError(f"machine index {i} out of range")
-        sc = self._coeffs_to_device(coeffs)
-        f_mont = FR.to_mont(sc)
-        alpha_mont = FR.to_mont(_tensor(ints_to_vec([alpha], FR_LIMBS), self.device))
-        t_inv = _tensor(ints_to_vec([pow(self.fft.T, -1, R) * FR.mont_r % R], FR_LIMBS),
-                        self.device)
-        y_m, qhat_m, any_zero = _eval_form_open(self.fft.left_roots_mont(), f_mont,
-                                                alpha_mont, t_inv)
-        if any_zero:  # alpha hits the domain: coefficient-basis fallback
-            return self._worker_open_coeff_fallback(i, sc, alpha)
-        y = vec_to_int(_host(FR.from_mont(y_m)))
-        return y, self._row_msm(i, FR.from_mont(qhat_m))
+        with span("worker_open", T=self.fft.T):
+            with span("open.upload"):
+                sc = self._coeffs_to_device(coeffs)
+            f_mont = FR.to_mont(sc)
+            alpha_mont = FR.to_mont(_tensor(ints_to_vec([alpha], FR_LIMBS), self.device))
+            t_inv = _tensor(ints_to_vec([pow(self.fft.T, -1, R) * FR.mont_r % R], FR_LIMBS),
+                            self.device)
+            with span("open.quotient", sync=True):
+                y_m, qhat_m, any_zero = _eval_form_open(self.fft.left_roots_mont(), f_mont,
+                                                        alpha_mont, t_inv)
+            if any_zero:  # alpha hits the domain: coefficient-basis fallback
+                return self._worker_open_coeff_fallback(i, sc, alpha)
+            with span("open.eval"):
+                y = vec_to_int(_host(FR.from_mont(y_m)))
+            return y, self._row_msm(i, FR.from_mont(qhat_m))
 
     def _worker_open_coeff_fallback(self, i: int, sc, alpha: int):
         coeff_ints = self.fft.fft_left(vec_to_ints(_host(sc)), True)

@@ -13,6 +13,12 @@ module the server parses with, so client and server cannot drift), the
 server subprocess is managed declaratively from an option mapping, and
 errors surface as exceptions rather than printed-and-swallowed Nones.
 
+With the port's tracer on (``utils.trace.TRACER.enable()``), each helper
+records ``client.request`` (its request's id, sent to the server in the
+``X-Fourier-Request`` header) around ``client.encode``, ``client.post``
+(counts ``req_bytes`` and ``resp_bytes``) and ``client.decode``.  Off, the
+request on the wire is the reference's, byte for byte, headers included.
+
 Two reference bugs are deliberately not reproduced: its ``Client.prove``
 calls a request constructor that does not exist (fourier.py:345-348), and its
 ``CLI.stop`` returns True exactly when the process FAILED to stop
@@ -25,10 +31,12 @@ import os
 import subprocess
 import sys
 import time
+from operator import itemgetter
 from typing import List
 
 import requests
 
+from ..utils.trace import REQUEST_HEADER, TRACER, span
 from . import wire
 
 DEFAULT_HOST = "127.0.0.1"
@@ -173,9 +181,17 @@ class Client:
         return f"http://{self.host}:{self.port}"
 
     def _call(self, method: str, params: dict | None = None) -> requests.Response:
-        return requests.post(
-            self.endpoint(), data=wire.serialize_request(method, params)
-        )
+        rid = TRACER.current_request()   # None unless traced inside a helper's request
+        if rid is None:
+            return requests.post(
+                self.endpoint(), data=wire.serialize_request(method, params)
+            )
+        with span("client.encode"):
+            body = wire.serialize_request(method, params)
+        with span("client.post", req_bytes=len(body)) as post:
+            resp = requests.post(self.endpoint(), data=body, headers={REQUEST_HEADER: rid})
+            post.add(resp_bytes=len(resp.content))
+        return resp
 
     # -- lifecycle -----------------------------------------------------
 
@@ -270,40 +286,44 @@ class Client:
 
 # -- module-level helpers: post, check for errors, extract the value --------
 
+def _answer(method: str, send, extract):
+    """send() the request, then extract the value from its answer."""
+    with TRACER.request("client.request", method=method):
+        with send() as resp:
+            with span("client.decode"):
+                return extract(_raise_if_error(resp.json()))
+
+
 def random_poly(rpc: Client):
-    with rpc.random_poly() as resp:
-        return _raise_if_error(resp.json())["poly"]
+    return _answer("randomPoly", rpc.random_poly, itemgetter("poly"))
 
 
 def random_point(rpc: Client):
-    with rpc.random_point() as resp:
-        return _raise_if_error(resp.json())["point"]
+    return _answer("randomPoint", rpc.random_point, itemgetter("point"))
 
 
 def eval_poly(rpc: Client, poly, x):
-    with rpc.eval(poly, x) as resp:
-        return _raise_if_error(resp.json())["y"]
+    return _answer("evaluate", lambda: rpc.eval(poly, x), itemgetter("y"))
 
 
 def fft(rpc: Client, poly, left: bool, inverse: bool):
-    with rpc.fft(poly, left, inverse) as resp:
-        return _raise_if_error(resp.json())["poly"]
+    return _answer("fft", lambda: rpc.fft(poly, left, inverse), itemgetter("poly"))
 
 
 def worker_commit(rpc: Client, i, poly):
-    with rpc.worker_commit(i, poly) as resp:
-        return _raise_if_error(resp.json())["commitment"]
+    return _answer("workerCommit", lambda: rpc.worker_commit(i, poly),
+                   itemgetter("commitment"))
 
 
 def worker_open(rpc: Client, i, poly, x):
-    with rpc.worker_open(i, poly, x) as resp:
-        data = _raise_if_error(resp.json())
-        return data["eval"], data["proof"]
+    return _answer("workerOpen", lambda: rpc.worker_open(i, poly, x),
+                   itemgetter("eval", "proof"))
 
 
 def worker_verify(rpc: Client, i, proof, alpha, eval, commitment):
-    with rpc.worker_verify(i, proof, alpha, eval, commitment) as resp:
-        return _raise_if_error(resp.json())["valid"]
+    return _answer("workerVerify",
+                   lambda: rpc.worker_verify(i, proof, alpha, eval, commitment),
+                   itemgetter("valid"))
 
 
 def worker_commit_and_open(rpc: Client, i, poly, alpha):
@@ -311,19 +331,19 @@ def worker_commit_and_open(rpc: Client, i, poly, alpha):
 
 
 def master_commit(rpc: Client, commitments):
-    with rpc.master_commit(commitments) as resp:
-        return _raise_if_error(resp.json())["commitment"]
+    return _answer("masterCommit", lambda: rpc.master_commit(commitments),
+                   itemgetter("commitment"))
 
 
 def master_open(rpc: Client, evals, proofs, beta):
-    with rpc.master_open(evals, proofs, beta) as resp:
-        data = _raise_if_error(resp.json())
-        return data["z"], data["pi_0"], data["pi_1"]
+    return _answer("masterOpen", lambda: rpc.master_open(evals, proofs, beta),
+                   itemgetter("z", "pi_0", "pi_1"))
 
 
 def master_verify(rpc: Client, commitment, beta, alpha, z, pi_0, pi_1):
-    with rpc.master_verify(commitment, beta, alpha, z, pi_0, pi_1) as resp:
-        return _raise_if_error(resp.json())["valid"]
+    return _answer("masterVerify",
+                   lambda: rpc.master_verify(commitment, beta, alpha, z, pi_0, pi_1),
+                   itemgetter("valid"))
 
 
 def test_routine(host: str = DEFAULT_HOST, port: int = DEFAULT_PORT,

@@ -8,6 +8,16 @@ request the server logs the kernel launch counts of that step, every MSM
 shard's launches together, on a line
 ``KERNEL_LAUNCHES {"step": ..., "launches": {...}}``.
 
+``FOURIER_TRACE=<path>`` turns the port's tracer (``utils/trace.py``) on
+once the server is set up, and appends each finished request's spans to
+the file as one JSON line (a list of spans), after its reply is written:
+``server.request`` (its id from the ``X-Fourier-Request`` header, else
+the server's own; counts ``body_bytes``, ``reply_bytes``, ``method`` and,
+on a device request, the hand-written kernels' ``launches``) around
+``server.read``, ``server.parse``, ``server.queue`` (the wait for the
+device lock), ``server.decode``, ``server.call`` (the backend method, with
+the protocol's spans inside), ``server.encode`` and ``server.write``.
+
 One server process serves one worker.  Its MSMs split over the devices of
 ``ServerConfig.msm_devices`` (default: every visible card under a CUDA
 device), one thread a shard, as the reference's server splits them over
@@ -37,6 +47,7 @@ from . import wire
 from ..models.piano import PianoBackend, SetupConfig
 from ..ops.kernels import COUNTERS
 from ..parallel.msm_fused_sharded import ShardSplitError
+from ..utils.trace import REQUEST_HEADER, TRACER, span
 
 logger = logging.getLogger("fourier_tpu")
 
@@ -130,12 +141,18 @@ class RpcHandler:
     def handle(self, method: str, params: dict) -> dict:
         fn = getattr(self, "_handle_" + method)
         if method in self._DEVICE_METHODS:
-            with self._device_lock:
+            with span("server.queue"):
+                self._device_lock.acquire()
+            try:
                 COUNTERS.reset()
                 try:
                     return fn(params)
                 finally:
+                    if TRACER.on:
+                        TRACER.add(launches={k: v for k, v in COUNTERS.launches.items() if v})
                     log_launches(method)
+            finally:
+                self._device_lock.release()
         if method in self._RNG_METHODS:
             with self._rng_lock:
                 return fn(params)
@@ -147,71 +164,97 @@ class RpcHandler:
         return None  # serialized as JSON null
 
     def _handle_randomPoly(self, params):
-        rows = self.backend.random_bivariate_limbs()
-        return {"poly": [_enc_fr_batch(row) for row in rows]}
+        with span("server.call"):
+            rows = self.backend.random_bivariate_limbs()
+        with span("server.encode"):
+            return {"poly": [_enc_fr_batch(row) for row in rows]}
 
     def _handle_randomPoint(self, params):
-        return {"point": _enc_fr(self.backend.random_point())}
+        with span("server.call"):
+            point = self.backend.random_point()
+        with span("server.encode"):
+            return {"point": _enc_fr(point)}
 
     def _handle_evaluate(self, params):
-        limbs = _parse_poly_limbs(params["poly"])
-        x = _parse_fr(params["x"])
-        return {"y": _enc_fr(self.backend.evaluate_limbs(limbs, x))}
+        with span("server.decode"):
+            limbs = _parse_poly_limbs(params["poly"])
+            x = _parse_fr(params["x"])
+        with span("server.call"):
+            y = self.backend.evaluate_limbs(limbs, x)
+        with span("server.encode"):
+            return {"y": _enc_fr(y)}
 
     def _handle_fft(self, params):
         left, inverse = params["left"], params["inverse"]
         if not isinstance(left, bool) or not isinstance(inverse, bool):
             raise ValueError("left/inverse must be booleans")
-        limbs = _parse_poly_limbs(params["poly"])
-        return {"poly": _enc_fr_batch(self.backend.fft.fft_limbs(limbs, left, inverse))}
+        with span("server.decode"):
+            limbs = _parse_poly_limbs(params["poly"])
+        with span("server.call"):
+            out = self.backend.fft.fft_limbs(limbs, left, inverse)
+        with span("server.encode"):
+            return {"poly": _enc_fr_batch(out)}
 
     # -- worker ------------------------------------------------------------------
 
     def _handle_workerCommit(self, params):
-        limbs = _parse_poly_limbs(params["poly"])
-        self._check_len(limbs)
-        commitment = self.backend.worker_commit(_parse_usize(params["i"]), self._pad(limbs))
-        return {"commitment": _enc_g1(commitment)}
+        with span("server.decode"):
+            limbs = _parse_poly_limbs(params["poly"])
+            self._check_len(limbs)
+            i = _parse_usize(params["i"])
+            limbs = self._pad(limbs)
+        with span("server.call"):
+            commitment = self.backend.worker_commit(i, limbs)
+        with span("server.encode"):
+            return {"commitment": _enc_g1(commitment)}
 
     def _handle_workerOpen(self, params):
-        limbs = _parse_poly_limbs(params["poly"])
-        self._check_len(limbs)
-        x = _parse_fr(params["x"])
-        y, proof = self.backend.worker_open(_parse_usize(params["i"]), self._pad(limbs), x)
-        return {"proof": _enc_g1(proof), "eval": _enc_fr(y)}
+        with span("server.decode"):
+            limbs = _parse_poly_limbs(params["poly"])
+            self._check_len(limbs)
+            x = _parse_fr(params["x"])
+            i = _parse_usize(params["i"])
+            limbs = self._pad(limbs)
+        with span("server.call"):
+            y, proof = self.backend.worker_open(i, limbs, x)
+        with span("server.encode"):
+            return {"proof": _enc_g1(proof), "eval": _enc_fr(y)}
 
     def _handle_workerVerify(self, params):
-        valid = self.backend.worker_verify(
-            _parse_usize(params["i"]),
-            _parse_g1(params["commitment"]),
-            _parse_fr(params["alpha"]),
-            _parse_fr(params["eval"]),
-            _parse_g1(params["proof"]),
-        )
-        return {"valid": bool(valid)}
+        with span("server.decode"):
+            args = (_parse_usize(params["i"]), _parse_g1(params["commitment"]),
+                    _parse_fr(params["alpha"]), _parse_fr(params["eval"]),
+                    _parse_g1(params["proof"]))
+        with span("server.call"):
+            return {"valid": bool(self.backend.worker_verify(*args))}
 
     # -- master ------------------------------------------------------------------
 
     def _handle_masterCommit(self, params):
-        commitments = [_parse_g1(s) for s in params["commitments"]]
-        return {"commitment": _enc_g1(self.backend.master_commit(commitments))}
+        with span("server.decode"):
+            commitments = [_parse_g1(s) for s in params["commitments"]]
+        with span("server.call"):
+            commitment = self.backend.master_commit(commitments)
+        with span("server.encode"):
+            return {"commitment": _enc_g1(commitment)}
 
     def _handle_masterOpen(self, params):
-        evals = [_parse_fr(s) for s in params["evals"]]
-        proofs = [_parse_g1(s) for s in params["proofs"]]
-        beta = _parse_fr(params["beta"])
-        z, (pi0, pi1) = self.backend.master_open(evals, proofs, beta)
-        return {"z": _enc_fr(z), "pi_0": _enc_g1(pi0), "pi_1": _enc_g1(pi1)}
+        with span("server.decode"):
+            evals = [_parse_fr(s) for s in params["evals"]]
+            proofs = [_parse_g1(s) for s in params["proofs"]]
+            beta = _parse_fr(params["beta"])
+        with span("server.call"):
+            z, (pi0, pi1) = self.backend.master_open(evals, proofs, beta)
+        with span("server.encode"):
+            return {"z": _enc_fr(z), "pi_0": _enc_g1(pi0), "pi_1": _enc_g1(pi1)}
 
     def _handle_masterVerify(self, params):
-        valid = self.backend.master_verify(
-            _parse_g1(params["commitment"]),
-            _parse_fr(params["beta"]),
-            _parse_fr(params["alpha"]),
-            _parse_fr(params["z"]),
-            (_parse_g1(params["pi_0"]), _parse_g1(params["pi_1"])),
-        )
-        return {"valid": bool(valid)}
+        with span("server.decode"):
+            args = (_parse_g1(params["commitment"]), _parse_fr(params["beta"]),
+                    _parse_fr(params["alpha"]), _parse_fr(params["z"]),
+                    (_parse_g1(params["pi_0"]), _parse_g1(params["pi_1"])))
+        with span("server.call"):
+            return {"valid": bool(self.backend.master_verify(*args))}
 
     # -- helpers -----------------------------------------------------------------
 
@@ -234,35 +277,57 @@ _MAX_BODY = int(os.environ.get("FOURIER_MAX_BODY", str(1 << 30)))
 class _HTTPHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     rpc: RpcHandler = None  # type: ignore[assignment]
+    # FOURIER_TRACE's file: each request's spans are appended to it
+    trace_path: str | None = None
+    _trace_lock = threading.Lock()
 
     def _serve(self):
-        try:
-            length = int(self.headers.get("Content-Length") or 0)
-            if length > _MAX_BODY:
-                payload = wire.serialize_result(
-                    {"message": f"request body exceeds {_MAX_BODY} bytes"})
-                self.send_response(200)
-                self.send_header("Content-Length", str(len(payload)))
-                self.send_header("Connection", "close")  # the body is never read
-                self.end_headers()
-                self.wfile.write(payload)
-                self.close_connection = True
-                return
-            body = self.rfile.read(length) if length else b""
-            logger.info("Received request")
+        with TRACER.request("server.request", self.headers.get(REQUEST_HEADER)) as req:
+            rid = TRACER.current_request()
             try:
+                self._respond(req)
+            except Exception as e:
+                logger.error("Connection error: %s", e)
+        if self.trace_path and rid is not None:
+            line = json.dumps(TRACER.drain(rid))
+            try:
+                with self._trace_lock, open(self.trace_path, "a") as fh:
+                    fh.write(line + "\n")
+            except OSError as e:
+                logger.error("Cannot write the request's spans: %s", e)
+
+    def _respond(self, req):
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > _MAX_BODY:
+            payload = wire.serialize_result(
+                {"message": f"request body exceeds {_MAX_BODY} bytes"})
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(payload)))
+            self.send_header("Connection", "close")  # the body is never read
+            self.end_headers()
+            self.wfile.write(payload)
+            self.close_connection = True
+            return
+        with span("server.read"):
+            body = self.rfile.read(length) if length else b""
+        req.add(body_bytes=len(body))
+        logger.info("Received request")
+        try:
+            with span("server.parse"):
                 method, params = wire.parse_request(body)
-                result = self.rpc.handle(method, params)
+            req.add(method=method)
+            result = self.rpc.handle(method, params)
+            with span("server.encode"):
                 payload = b"null" if result is None else wire.serialize_result(result)
-            except Exception as e:  # error -> {"message": ...}, HTTP 200
-                logger.error("Error: %s", e)
-                payload = wire.serialize_result({"message": str(e)})
+        except Exception as e:  # error -> {"message": ...}, HTTP 200
+            logger.error("Error: %s", e)
+            payload = wire.serialize_result({"message": str(e)})
+        req.add(reply_bytes=len(payload))
+        with span("server.write"):
             self.send_response(200)
             self.send_header("Content-Length", str(len(payload)))
             self.end_headers()
             self.wfile.write(payload)
-        except Exception as e:
-            logger.error("Connection error: %s", e)
 
     do_GET = _serve
     do_POST = _serve
@@ -316,6 +381,10 @@ class Server:
         except BaseException:
             self.httpd.server_close()  # a retry binds the port anew
             raise
+        handler_cls.trace_path = os.environ.get("FOURIER_TRACE") or None
+        if handler_cls.trace_path:
+            TRACER.enable()
+            logger.info("Tracing each request's spans to %s", handler_cls.trace_path)
         logger.info("Serving")
         self.httpd.serve_forever()
 

@@ -1,3 +1,3 @@
-"""Shared utilities: phase timing, base64 wire encoding."""
+"""Shared utilities: spans and phase timing."""
 
-from .timing import timed  # noqa: F401
+from .trace import TRACER, span, timed  # noqa: F401

@@ -6,10 +6,10 @@ cannot do.
   scale-4 row and a constant univariate polynomial on the CPU and finds no
   jax and no fourier_tpu module loaded.
 - No port source (parallel/ included; nor chip_smoke.py, kernel_probe.py,
-  sharded_msm_probe.py, the card-only kernel tests, their redundant-form
-  models, the gloo tests, whose ranks import their module, or the
-  in-process shards' tests) imports jax or any fourier_tpu module other
-  than fourier_tpu_torch.
+  sharded_msm_probe.py, trace_probe.py, the card-only kernel and tracer
+  tests, the kernel tests' redundant-form models, the gloo tests, whose
+  ranks import their module, or the in-process shards' tests) imports jax
+  or any fourier_tpu module other than fourier_tpu_torch.
 - `run` refuses a CUDA device when none is visible, and MSM shards that
   cannot split the tables (exit code 2); `setup` refuses what the
   reference's can_proceed refuses, with exit code 1.
@@ -75,8 +75,9 @@ def test_port_sources_never_name_jax():
     # fourier_tpu\b does not match fourier_tpu_torch: no word boundary before "_"
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fourier_tpu)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_probe.py"),
-             os.path.join(ROOT, "sharded_msm_probe.py"),
+             os.path.join(ROOT, "sharded_msm_probe.py"), os.path.join(ROOT, "trace_probe.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py"),
+             os.path.join(ROOT, "tests", "test_torch_trace.py"),
              os.path.join(ROOT, "tests", "torch_redundant.py"),
              os.path.join(ROOT, "tests", "test_torch_parallel.py"),
              os.path.join(ROOT, "tests", "test_torch_multihost.py"),
