@@ -31,7 +31,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ladder, K2 and K5 at msm_naive's shapes (rows of 8 and 64 points, tree
    levels of 1 to 32 lanes) and at their throughput shapes, with latency
    floors from the product and square latencies measured in one warp
-   (csrc/fp_mul_bench.cu) in the same run.
+   (csrc/fp_mul_bench.cu) in the same run.  Then the open's quotient
+   (csrc/fr_quotient.cu, four kernels a call) against its plain twin, y,
+   q and the flag, at a workerOpen's T = 2^19 x 1 row and at 2^18 x 4
+   rows, each kernel's device time by torch.profiler, the inversion's
+   latency floor its time over one block.
 2. The pinned protocol transcript (tests/fixtures) reproduced on the card.
 3. worker_commit at T = 2^12 (signed digits, c = 11) against the host C++
    MSM of fourier_tpu_torch.native on the same row.
@@ -87,9 +91,10 @@ tableless, and the client's round at scale 20 / machines 2.  Every phase but the
 ones pins one shard (`--msm-devices cuda:0`, or FOURIER_SHARD_MSM=0 for
 the client's server).  Launches are counted from 0 before each path and
 read after it (a server's are its own counts of its run), and reported
-per path; a workerCommit of a server must launch no K2 and, over D
-shards, K1 and K4 D times each and the tree kernel 4 D times (1 or 2 on
-one shard).  The line before the last is the kernels' JSON record;
+per path; a workerCommit of a server must launch no K2 and no quotient
+kernel and, over D shards, K1 and K4 D times each and the tree kernel 4 D
+times (1 or 2 on one shard); a workerOpen and the round as one call each
+of the quotient's four kernels once.  The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -129,7 +134,12 @@ KERNEL_INFO = {
     # (fourier_tpu/ops/msm.py:209) reach _add_inc_kernel and _dbl_kernel
     "g1_madd_ladder": ("fourier_tpu_torch/csrc/g1_madd.cu",
                        "fourier_tpu/ops/pallas_curve.py:470 and :224"),
+    # the open's evaluation-form quotient, four launches of one call of
+    # kernels.fr_quotient; fourier_tpu's _eval_form_open is jnp
+    **{k: ("fourier_tpu_torch/csrc/fr_quotient.cu", "none (jnp fused by XLA)")
+       for k in ("fr_quotient_inv", "fr_quotient_sum", "fr_quotient_eval", "fr_quotient_qhat")},
 }
+QUOTIENT_KERNELS = tuple(k for k in KERNEL_INFO if k.startswith("fr_quotient_"))
 
 # Work counts for the bounds.  A Montgomery product of 12-word Fp values
 # (CIOS) is 2 * 12 * 12 + 12 = 300 32-bit multiply-adds; a complete
@@ -140,6 +150,10 @@ KERNEL_INFO = {
 MADS_PER_PRODUCT = 300
 PRODUCTS = {"add": 16, "madd": 11, "dbl": 7}
 COORD_BYTES = 48
+# The same for 8-word Fr values: 2 * 8 * 8 + 8 = 136 multiply-adds a
+# product, 32 bytes an element (the port's limbs move 4x that).
+FR_MADS_PER_PRODUCT = 136
+FR_BYTES = 32
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 # 32-bit integer multiply-adds per clock and SM on compute capability 9.0
 # (the arithmetic-instruction throughput table of the CUDA C++ Programming
@@ -211,6 +225,40 @@ def queued_ms(fn, reps):
     return cuda_ms(fn, reps)
 
 
+def device_ms(fn, reps):
+    """Device milliseconds of each kernel (and copy) of one fn() call, by
+    name (its first 60 characters): torch.profiler over reps calls after a
+    warm one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key[:60]] = us * 1e-3 / reps
+    return out
+
+
+def int_peak():
+    """(int32 multiply-adds a second, SMs, maximum SM MHz) of card 0."""
+    import torch
+
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return IMAD_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
+
+
 def fp_latency_us(lib):
     """(product, square): microseconds of one redundant Fp product and one
     square (csrc/g1.cuh fp_mul_lazy, fp_sqr_lazy) in one warp's dependent
@@ -263,8 +311,6 @@ def to_dev(p, device):
 # -- phase 0 ------------------------------------------------------------------------
 
 def phase0_card_and_build():
-    import torch
-
     from fourier_tpu_torch.ops import kernels
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -272,12 +318,7 @@ def phase0_card_and_build():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
-    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
-    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
-    mhz = float(clk.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    peak = IMAD_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    peak, sms, mhz = int_peak()
     log(f"phase 0: int32 multiply-add peak {peak:.4e}/s ({sms} SMs x {mhz:.0f} MHz x "
         f"{IMAD_PER_CLOCK_PER_SM}), memory {HBM_BYTES_PER_S:.3e} B/s")
     t0 = time.perf_counter()
@@ -729,6 +770,61 @@ def _main_path_shapes(device, peak, op_us):
     return results
 
 
+def _quotient(device, peak):
+    """The open's quotient (kernels.fr_quotient, four launches a call)
+    against its plain twin, exact, at the shapes the main path gives it: a
+    workerOpen's row of T = 2^(SCALE-1) lanes, and four rows of T/2 (the
+    round as one call's batch).  A result per kernel: its device time
+    (torch.profiler, mean of 5 calls); the twin's time is the whole
+    quotient's (it has no per-kernel twin) and so is max_abs_err (y and q;
+    the flags must agree).  Each kernel's bound counts its own products
+    and the Fr elements it reads and writes; fr_quotient_inv's latency floor
+    is its time over one block of 16 lanes (its scans and Fermat chain)."""
+    import torch
+
+    from fourier_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    results = {}
+    for log_t, B in ((SCALE - 1, 1), (SCALE - 2, 4)):
+        T = 1 << log_t
+        roots = rand_fr(T, gen, device)
+        f = rand_fr(B * T, gen, device).reshape(16, B, T) if B > 1 else rand_fr(T, gen, device)
+        args = (roots, f, rand_fr(1, gen, device), rand_fr(1, gen, device))
+        y, q, flag = kernels.fr_quotient(*args)
+        times = device_ms(lambda: kernels.fr_quotient(*args), 5)
+        plain_ms, (py, pq, pflag) = cuda_ms(lambda: kernels.fr_quotient_plain(*args), 1)
+        check(flag == pflag, f"fr_quotient's flag {flag}, its twin's {pflag}")
+        err = max_abs_err((y, q), (py, pq))
+        # products a lane (the inversion's way up and down: 4; a row's sum
+        # and q: 1 each) and Fr elements read and written a lane
+        work = {"fr_quotient_inv": (4 * T, 3 * T),
+                "fr_quotient_sum": (B * T, B * T + T),
+                "fr_quotient_eval": (2 * log_t + 1 + B, 2 + B),
+                "fr_quotient_qhat": (B * T, 2 * B * T + T)}
+        floor = []
+        if B == 1:
+            small = [rand_fr(n, gen, device) for n in (16, 16, 1, 1)]
+            floor = [_kernel_ms(device_ms(lambda: kernels.fr_quotient(*small), 20),
+                                "fr_quotient_inv")]
+        suffix = "" if B == 1 else f"@2^{log_t}x{B}"
+        for name, (products, elements) in work.items():
+            results[name + suffix] = (
+                err, _kernel_ms(times, name), plain_ms, f"T = 2^{log_t} x {B} rows",
+                bound(products * FR_MADS_PER_PRODUCT, elements * FR_BYTES, peak),
+                *(floor if name == "fr_quotient_inv" else ()))
+        log(f"phase 1: the quotient at T = 2^{log_t} x {B} rows: device ms {times}")
+        del roots, f, args, y, q, py, pq
+    return results
+
+
+def _kernel_ms(times, name):
+    ms = [v for k, v in times.items() if k.startswith(name + "_kernel")]
+    check(len(ms) == 1, f"the profiler saw no single {name} kernel: {sorted(times)}")
+    return ms[0]
+
+
 def phase1_kernels(device, peak):
     from fourier_tpu_torch.ops import kernels
 
@@ -740,7 +836,7 @@ def phase1_kernels(device, peak):
     log(f"phase 1: one warp's dependent chain: a redundant product {product_us:.4f} us, a "
         f"square {square_us:.4f} us; in series an add {op_us['add']:.4f} us, a mixed add "
         f"{op_us['madd']:.4f} us, a doubling {op_us['dbl']:.4f} us")
-    results = _main_path_shapes(device, peak, op_us)
+    results = {**_main_path_shapes(device, peak, op_us), **_quotient(device, peak)}
     for name, (err, ms, plain_ms, shape, (bound_ms, bound_by), *floor) in results.items():
         log(f"phase 1: {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4g} ms ({bound_by})"
@@ -944,14 +1040,19 @@ def drive_server(label, card, extra_args=(), env=None, fixed_row=None,
             trees = launches["g1_tree_reduce"]
             check(launches["g1_add"] == 0 and launches["accumulate"] == shards
                   and launches["horner_2k"] == shards
-                  and (0 < trees <= 2 if shards == 1 else trees == 4 * shards),
+                  and (0 < trees <= 2 if shards == 1 else trees == 4 * shards)
+                  and not any(launches[k] for k in QUOTIENT_KERNELS),
                   f"workerCommit launched K2 {launches['g1_add']} times, K1 "
                   f"{launches['accumulate']}, the tree kernel {trees} and K4 "
                   f"{launches['horner_2k']} times (expected 0, {shards}, "
-                  f"{'1 or 2' if shards == 1 else 4 * shards} and {shards})")
+                  f"{'1 or 2' if shards == 1 else 4 * shards} and {shards}), and the "
+                  f"quotient's {[launches[k] for k in QUOTIENT_KERNELS]} (expected none)")
             per_request.setdefault("workerCommit", launches)
             com = out["commitment"]
             opened, launches = rpc("workerOpen", {"i": i, "poly": row, "x": alpha}, True)
+            check(all(launches[k] == 1 for k in QUOTIENT_KERNELS),
+                  f"workerOpen launched the quotient's kernels "
+                  f"{[launches[k] for k in QUOTIENT_KERNELS]} times (expected once each)")
             per_request.setdefault("workerOpen", launches)
             ok = rpc("workerVerify", {"i": i, "alpha": alpha, "proof": opened["proof"],
                                       "eval": opened["eval"], "commitment": com})[0]
@@ -1356,9 +1457,9 @@ def phase6_round(b, limbs, card):
               f"{label}: a wrong z was accepted")
         check(launches["accumulate"] == 2 * M and launches["horner_2k"] == 2 * M
               and launches["g1_madd_ladder"] == 1 and launches["g1_dbl"] == 0
-              and launches["g1_madd"] == 0,
+              and launches["g1_madd"] == 0 and all(launches[k] == 1 for k in QUOTIENT_KERNELS),
               f"{label}: launches {launches} (expected K1 and K4 {2 * M} times each, the "
-              f"ladder once for pi1, no K3 and no batched K5)")
+              f"ladder once for pi1, no K3 and no batched K5, the quotient's once each)")
         log(f"phase 6 (round): {label}: inputs {times[0][0]:.3f} / {times[1][0]:.3f} ms, the "
             f"round {times[0][1]:.3f} / {times[1][1]:.3f} ms (first / second call, each after "
             f"torch.cuda.synchronize()), peak device memory above the backend's "
@@ -1469,7 +1570,8 @@ def phase7_client_round(card, machines_scale=2):
     for rec in launches:
         for k, v in rec["launches"].items():
             totals[k] += v
-    check(all(totals[k] > 0 for k in ("accumulate", "g1_tree_reduce", "g1_dbl", "horner_2k")),
+    check(all(totals[k] > 0 for k in ("accumulate", "g1_tree_reduce", "g1_dbl", "horner_2k",
+                                      *QUOTIENT_KERNELS)),
           f"{label}: the run launched {totals}")
     log(f"{label}: {M} workers and the master verified, a tampered z rejected; kernel "
         f"launches {totals}")
@@ -1578,9 +1680,11 @@ def main() -> int:
     # servers in `launches_per_request`.  `shape` names the inputs
     # the numbers were taken on; `other_shapes` holds a kernel's numbers at
     # its other shapes (K4 at the tableless MSM's; K2, K5 and the ladder at
-    # msm_naive's and at their throughput shapes); `latency_floor_ms`, where
-    # present, is the chain of dependent products the launch cannot beat, at
-    # the product and square latencies phase 1 measured in this run.
+    # msm_naive's and at their throughput shapes; the quotient's at 2^18 x 4
+    # rows); `latency_floor_ms`, where present, is the chain of dependent
+    # products the launch cannot beat, at the product and square latencies
+    # phase 1 measured in this run (for fr_quotient_inv, its time over one
+    # block, measured in this run).
     first = {k: next((p for p, c in paths.items() if c[k] > 0), None) for k in KERNEL_INFO}
 
     def numbers(res):

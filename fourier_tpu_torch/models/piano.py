@@ -34,9 +34,10 @@ from ..refimpl import curve as rc
 from ..refimpl import pairing as rp
 from ..refimpl import poly as rpoly
 from ..refimpl.field import hash_to_bls_field
-from ..utils.trace import span, timed
+from ..utils.trace import TRACER, span, timed
 
 from ..ops import curve as cv
+from ..ops import kernels
 from ..ops import msm as msm_mod
 from ..ops import msm_fused as mf
 from ..ops.curve import G1Aff, G1Jac
@@ -357,23 +358,10 @@ def _eval_form_open(roots_mont, f_mont, alpha_mont, t_inv_mont):
 
     roots [L, T], alpha and t_inv [L, 1]; f [L, T] is one row, [L, ..., T]
     a batch of rows, which share the one batch inversion of alpha - w^j.
+    On a card the hand-written kernels of ops/kernels.py fr_quotient; on
+    the CPU their plain twin.
     """
-    L, T = roots_mont.shape
-    diffs = FR.sub(alpha_mont, roots_mont)
-    any_zero = bool(FR.is_zero(diffs).any())
-    invd = FR.batch_inv(diffs)
-    alpha_t = FR.pow_const(alpha_mont, T)
-    one = FR.broadcast_const("one_mont", (1,), roots_mont.device)
-    factor = FR.mul(FR.sub(alpha_t, one), t_inv_mont)
-    rows = (L,) + (1,) * (f_mont.ndim - 2)
-    roots_b, invd_b = roots_mont.reshape(rows + (T,)), invd.reshape(rows + (T,))
-    s = FR.mul(FR.mul(f_mont, roots_b), invd_b)
-    while s.shape[-1] > 1:
-        h = s.shape[-1] // 2
-        s = FR.add(s[..., :h], s[..., h:])
-    y = FR.mul(factor.reshape(rows + (1,)), s)
-    qhat = FR.mul(FR.sub(y, f_mont), invd_b)
-    return y, qhat, any_zero
+    return kernels.fr_quotient(roots_mont, f_mont, alpha_mont, t_inv_mont)
 
 
 def _poly_eval_device(f_mont, x_mont):
@@ -502,11 +490,15 @@ class PianoBackend:
             alpha_mont = FR.to_mont(_tensor(ints_to_vec([alpha], FR_LIMBS), self.device))
             t_inv = _tensor(ints_to_vec([pow(self.fft.T, -1, R) * FR.mont_r % R], FR_LIMBS),
                             self.device)
-            with span("open.quotient", sync=True):
+            with span("open.quotient", sync=True) as quotient:
+                launched = kernels.COUNTERS.total() if TRACER.on else None
                 y_m, qhat_m, any_zero = _eval_form_open(self.fft.left_roots_mont(), f_mont,
                                                         alpha_mont, t_inv)
+                if launched is not None:
+                    quotient.add(launches=kernels.COUNTERS.total() - launched)
             if any_zero:  # alpha hits the domain: coefficient-basis fallback
-                return self._worker_open_coeff_fallback(i, sc, alpha)
+                with span("open.fallback"):
+                    return self._worker_open_coeff_fallback(i, sc, alpha)
             with span("open.eval"):
                 y = vec_to_int(_host(FR.from_mont(y_m)))
             return y, self._row_msm(i, FR.from_mont(qhat_m))

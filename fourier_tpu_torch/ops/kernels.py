@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the G1 path, their wrappers and their
-plain PyTorch twins.
+"""The hand-written CUDA kernels of the G1 path and of the open's Fr
+quotient, their wrappers and their plain PyTorch twins.
 
 | kernel         | source             | replaces (fourier_tpu)                                    |
 |----------------|--------------------|-----------------------------------------------------------|
@@ -10,6 +10,7 @@ plain PyTorch twins.
 | horner_2k      | csrc/horner_2k.cu  | ops/pallas_curve.py:horner_2k, and ops/msm.py:_horner_2k's fold |
 | g1_madd        | csrc/g1_madd.cu    | ops/pallas_curve.py:_madd_kernel                           |
 | g1_madd_ladder | csrc/g1_madd.cu    | ops/msm.py:msm_naive's steps: ops/pallas_curve.py:_add_inc_kernel, _dbl_kernel |
+| fr_quotient_*  | csrc/fr_quotient.cu | none: models/piano.py:_eval_form_open is jnp that XLA fuses |
 
 ops/pallas_curve.py:_add_kernel (the complete Jacobian add behind
 pallas_curve.add) computes K2's function on every lane and maps to K2.
@@ -23,7 +24,11 @@ returns one point.  g1_madd_ladder is K5's second entry: msm_naive's whole
 double-and-add (a doubling and a mixed add a scalar bit) in one launch.
 Every point formula of the kernels (csrc/g1.cuh) runs on redundant
 coordinates in [0, 2p) and stores canonical limbs (tests/torch_redundant.py
-models their values in Python ints).
+models their values in Python ints).  fr_quotient is the evaluation-form
+quotient of a workerOpen in four launches (inv, sum, eval, qhat: one
+batch inversion that stays on the card, a Fermat inversion a block of
+csrc/fr_quotient.cu, then the sums, y and q); its plain twin is the
+tensor code of ops/field.py.
 
 The kernels are built with nvcc for sm_90a at first use, one nvcc per
 source, all started together, then linked into one library in
@@ -55,10 +60,11 @@ from ..constants import FP_LIMBS, FR_LIMBS, LIMB_BITS
 
 from . import curve as cv
 from .curve import G1Aff, G1Jac
-from .field import FP
+from .field import FP, FR
 
 KERNELS = ("accumulate", "g1_add", "g1_tree_reduce", "g1_dbl", "horner_2k", "g1_madd",
-           "g1_madd_ladder")
+           "g1_madd_ladder", "fr_quotient_inv", "fr_quotient_sum", "fr_quotient_eval",
+           "fr_quotient_qhat")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -67,8 +73,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # product and square and of the additions, whose latencies chip_smoke.py
 # and kernel_probe.py measure for the latency floors
 _SOURCES = ("accumulate.cu", "g1_add.cu", "g1_tree.cu", "g1_dbl.cu", "horner_2k.cu",
-            "g1_madd.cu", "fp_mul_bench.cu", "errors.cu")
-_HEADERS = ("g1.cuh",)
+            "g1_madd.cu", "fr_quotient.cu", "fp_mul_bench.cu", "errors.cu")
+_HEADERS = ("g1.cuh", "fr.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -106,6 +112,11 @@ class KernelCounters:
     def count(self, name: str):
         with self._lock:
             self.launches[name] += 1
+
+    def total(self) -> int:
+        """Launches of every kernel so far."""
+        with self._lock:
+            return sum(self.launches.values())
 
     def collision_buffer(self, name: str, device) -> torch.Tensor:
         key = (name, str(device))
@@ -194,8 +205,15 @@ def _build() -> ctypes.CDLL:
     lib.fk_horner_2k.argtypes = [vp, vp, vp, i64, i64, i32, i32] + [vp] * 6
     lib.fk_g1_madd.argtypes = [vp] * 9 + [i64, vp, vp]
     lib.fk_g1_madd_ladder.argtypes = [vp] * 4 + [i32] + [vp] * 3 + [i64, vp, vp]
+    lib.fk_fr_quotient_inv.argtypes = [vp, vp, i64] + [vp] * 4
+    lib.fk_fr_quotient_sum.argtypes = [vp, vp, i64, i64, vp, vp]
+    lib.fk_fr_quotient_eval.argtypes = [vp] * 4 + [i64, i64] + [vp] * 3
+    lib.fk_fr_quotient_qhat.argtypes = [vp] * 3 + [i64, i64, vp, vp]
+    lib.fk_fr_quotient_blocks.argtypes = [i64]
+    lib.fk_fr_quotient_blocks.restype = i64
     for fn in (lib.fk_accumulate, lib.fk_g1_add, lib.fk_g1_tree_reduce, lib.fk_g1_dbl,
-               lib.fk_horner_2k, lib.fk_g1_madd, lib.fk_g1_madd_ladder):
+               lib.fk_horner_2k, lib.fk_g1_madd, lib.fk_g1_madd_ladder, lib.fk_fr_quotient_inv,
+               lib.fk_fr_quotient_sum, lib.fk_fr_quotient_eval, lib.fk_fr_quotient_qhat):
         fn.restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
@@ -659,3 +677,84 @@ def horner_2k(terms: G1Jac, width: int) -> G1Jac:
     _launch("horner_2k", dev, *map(_ptr, t), n // width, width, rp, tpb, _ptr(scratch),
             *map(_ptr, out), _ptr(COUNTERS.collision_buffer("horner_2k", dev)))
     return G1Jac(*out)
+
+
+# -- fr_quotient ----------------------------------------------------------------------
+
+def fr_quotient_plain(roots_mont, f_mont, alpha_mont, t_inv_mont):
+    """Plain twin of fr_quotient, in Field's tensor ops: the batch
+    inversion of ops/field.py (its chunk totals inverted on the host) and
+    a halving tree of additions."""
+    L, T = roots_mont.shape
+    diffs = FR.sub(alpha_mont, roots_mont)
+    any_zero = bool(FR.is_zero(diffs).any())
+    invd = FR.batch_inv(diffs)
+    alpha_t = FR.pow_const(alpha_mont, T)
+    one = FR.broadcast_const("one_mont", (1,), roots_mont.device)
+    factor = FR.mul(FR.sub(alpha_t, one), t_inv_mont)
+    rows = (L,) + (1,) * (f_mont.ndim - 2)
+    roots_b, invd_b = roots_mont.reshape(rows + (T,)), invd.reshape(rows + (T,))
+    s = FR.mul(FR.mul(f_mont, roots_b), invd_b)
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = FR.add(s[..., :h], s[..., h:])
+    y = FR.mul(factor.reshape(rows + (1,)), s)
+    qhat = FR.mul(FR.sub(y, f_mont), invd_b)
+    return y, qhat, any_zero
+
+
+def fr_quotient(roots_mont, f_mont, alpha_mont, t_inv_mont):
+    """(y_mont [16, ..., 1], qhat_mont [16, ..., T], any_zero) for Lagrange
+    values f_j on the domain w^j and a point alpha, all canonical
+    Montgomery limbs:
+
+    y      = (alpha^T - 1)/T * sum_j f_j w^j / (alpha - w^j)
+    q(w^j) = (y - f_j) / (alpha - w^j)
+
+    roots [16, T], alpha and t_inv 16 limbs of one element; f [16, T] is
+    one row, [16, ..., T] a batch of rows sharing the one inversion of
+    alpha - w^j.  A lane where alpha - w^j = 0 takes 0 as its inverse and
+    sets any_zero (a Python bool, read once after the launches).  On a card
+    four launches and that one read; on the CPU the plain twin."""
+    if roots_mont.dtype != torch.int64 or roots_mont.ndim != 2 or roots_mont.shape[0] != FR_LIMBS:
+        raise ValueError(f"roots must be int64 [{FR_LIMBS}, T] limbs")
+    T = roots_mont.shape[1]
+    if T == 0 or f_mont.dtype != torch.int64 or f_mont.ndim < 2 \
+            or f_mont.shape[0] != FR_LIMBS or f_mont.shape[-1] != T:
+        raise ValueError(f"f must be int64 [{FR_LIMBS}, ..., {T}] limbs, got "
+                         f"{f_mont.dtype} {tuple(f_mont.shape)}")
+    for name, t in (("alpha", alpha_mont), ("t_inv", t_inv_mont)):
+        if t.dtype != torch.int64 or t.shape[0] != FR_LIMBS or t.numel() != FR_LIMBS:
+            raise ValueError(f"{name} must be int64 limbs of one element")
+    dev = roots_mont.device
+    if any(t.device != dev for t in (f_mont, alpha_mont, t_inv_mont)):
+        raise ValueError("operands on different devices")
+    if dev.type == "cpu":
+        return fr_quotient_plain(roots_mont, f_mont, alpha_mont, t_inv_mont)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    batch = tuple(f_mont.shape[1:-1])
+    B = f_mont[0, ..., 0].numel()
+    roots = roots_mont.contiguous()
+    f = f_mont.reshape(FR_LIMBS, B, T).contiguous()
+    alpha = alpha_mont.reshape(FR_LIMBS, 1).contiguous()
+    t_inv = t_inv_mont.reshape(FR_LIMBS, 1).contiguous()
+    blocks = build().fk_fr_quotient_blocks(T)      # the block shape is the kernel's
+    words = FR_LIMBS // 2
+    # 1/d_j (rows 0-7) and w^j/d_j (rows 8-15) as 32-bit words a lane; a
+    # partial sum a row and block; the blocks' flags, then any_zero
+    scratch = torch.empty((2 * words, T), dtype=torch.int32, device=dev)
+    partials = torch.empty((words, B * blocks), dtype=torch.int32, device=dev)
+    flags = torch.empty(blocks + 1, dtype=torch.int32, device=dev)
+    y = torch.empty((FR_LIMBS, B), dtype=torch.int64, device=dev)
+    qhat = torch.empty((FR_LIMBS, B, T), dtype=torch.int64, device=dev)
+    inv, wi = scratch[:words], scratch[words:]
+    _launch("fr_quotient_inv", dev, _ptr(roots), _ptr(alpha), T, _ptr(inv), _ptr(wi),
+            _ptr(flags))
+    _launch("fr_quotient_sum", dev, _ptr(f), _ptr(wi), T, B, _ptr(partials))
+    _launch("fr_quotient_eval", dev, _ptr(alpha), _ptr(t_inv), _ptr(partials), _ptr(flags), T,
+            B, _ptr(y), _ptr(flags[blocks:]))
+    _launch("fr_quotient_qhat", dev, _ptr(f), _ptr(inv), _ptr(y), T, B, _ptr(qhat))
+    any_zero = bool(flags[blocks].item())
+    return (y.reshape((FR_LIMBS,) + batch + (1,)), qhat.reshape((FR_LIMBS,) + batch + (T,)),
+            any_zero)

@@ -50,7 +50,17 @@ object, and written to --out FILE where one is given):
    (coefficient upload to affine point on the host), mean of 3 after a
    warm one;
 9. with --setup, only the in-memory server setup at scale 20 / machines 1
-   (host wall after a synchronize, and its launches), instead of 2-8.
+   (host wall after a synchronize, and its launches), instead of 2-8;
+10. the open's evaluation-form quotient (`models/piano.py` `_eval_form_open`,
+   on a card the kernels of csrc/fr_quotient.cu where the package has them)
+   at the main path's shapes, one row of 2^19 and four rows of 2^18: a
+   call's host wall (mean of 5 after a warm one; the call ends in its
+   flag's read-back), its launches, each kernel's device time
+   (torch.profiler, mean of 5 calls), the bound, and the plain twin's wall
+   on the card (mean of 2) with bit-equality of y, q and the flag; and the
+   inversion kernel alone at T = 16 (one block: its Fermat chain and scans,
+   the latency floor of the design).  With --quotient, only this section
+   (after 1).
 
 To compare two trees, run the script on each in turn in one chip call
 (parent, change, change, parent): a tree's first run builds its kernels.
@@ -71,7 +81,8 @@ import time
 
 # the timing helpers of the smoke beside this file (imported before --tree
 # puts another checkout, with its own chip_smoke.py, first on sys.path)
-from chip_smoke import cuda_ms, fp_latency_us, log, queued_ms
+from chip_smoke import (FR_BYTES, FR_MADS_PER_PRODUCT, bound, cuda_ms, device_ms, fp_latency_us,
+                        int_peak, log, queued_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCALE = 20
@@ -519,6 +530,54 @@ def setup_in_memory(report):
     del backend
 
 
+# -- section 10 -----------------------------------------------------------------------
+
+def quotient(report):
+    import torch
+
+    from fourier_tpu_torch.models import piano
+    from fourier_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    twin = getattr(kernels, "fr_quotient_plain", None)
+    peak = int_peak()[0]
+    out = {}
+    for log_t, B in ((SCALE - 1, 1), (SCALE - 2, 4)):
+        T = 1 << log_t
+        roots = rand_fr(T, gen)
+        f = rand_fr(T * B, gen).reshape(16, B, T) if B > 1 else rand_fr(T, gen)
+        alpha, t_inv = rand_fr(1, gen), rand_fr(1, gen)
+
+        def call():
+            return piano._eval_form_open(roots, f, alpha, t_inv)
+
+        launches, got = launches_of(call)
+        wall, _ = wall_ms(call, 5)
+        # the function's elements: the roots and f read, q written; its
+        # products: the inversion's way up and down 4 a lane, the sum and q
+        # one a lane and row
+        bound_ms, bound_by = bound(FR_MADS_PER_PRODUCT * T * (4 + 2 * B),
+                                   FR_BYTES * T * (1 + 2 * B), peak)
+        row = {"T": T, "rows": B, "wall_ms": wall, "launches": launches,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if twin is not None:
+            row["device_ms"] = device_ms(call, 5)
+            want = twin(roots, f, alpha, t_inv)
+            row["equal_to_plain_twin"] = got[2] == want[2] and all(
+                torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+            row["plain_ms"], _ = wall_ms(lambda: twin(roots, f, alpha, t_inv), 2)
+        out[f"2^{log_t}x{B}"] = row
+        log(f"quotient at T = 2^{log_t} x {B} rows: wall {wall:.4f} ms, launches {launches}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); {row}")
+        del roots, f
+    if twin is not None:
+        small = [rand_fr(16, gen), rand_fr(16, gen), rand_fr(1, gen), rand_fr(1, gen)]
+        out["one_block_T16"] = device_ms(lambda: kernels.fr_quotient(*small), 20)
+        log(f"quotient at T = 16 (one block), device ms: {out['one_block_T16']}")
+    report["quotient"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT, help="directory holding fourier_tpu_torch/")
@@ -528,6 +587,8 @@ def main() -> int:
                     help="time only the in-memory server setup (section 9)")
     ap.add_argument("--sass", action="store_true",
                     help="also time the Fp product and count its SASS (section 2)")
+    ap.add_argument("--quotient", action="store_true",
+                    help="time only the open's quotient (section 10)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -551,6 +612,9 @@ def main() -> int:
     if args.setup:
         setup_in_memory(report)
         return _write(report, args.out)
+    if args.quotient:
+        quotient(report)
+        return _write(report, args.out)
     if args.sass:
         report["fp_mul"] = fp_mul(build_dir)
         report["ptxas"] = kernel_resources(build_dir)
@@ -558,6 +622,7 @@ def main() -> int:
     kernels_alone(report)
     msm_naive_calls(report)
     worker_commits(report)
+    quotient(report)
     return _write(report, args.out)
 
 

@@ -7,7 +7,7 @@ cannot do.
   jax and no fourier_tpu module loaded.
 - No port source (parallel/ included; nor chip_smoke.py, kernel_probe.py,
   sharded_msm_probe.py, trace_probe.py, the card-only kernel and tracer
-  tests, the kernel tests' redundant-form models, the gloo tests, whose
+  tests, the quotient's CPU tests, the kernel tests' redundant-form models, the gloo tests, whose
   ranks import their module, or the in-process shards' tests) imports jax
   or any fourier_tpu module other than fourier_tpu_torch.
 - `run` refuses a CUDA device when none is visible, and MSM shards that
@@ -78,6 +78,7 @@ def test_port_sources_never_name_jax():
              os.path.join(ROOT, "sharded_msm_probe.py"), os.path.join(ROOT, "trace_probe.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py"),
              os.path.join(ROOT, "tests", "test_torch_trace.py"),
+             os.path.join(ROOT, "tests", "test_torch_quotient.py"),
              os.path.join(ROOT, "tests", "torch_redundant.py"),
              os.path.join(ROOT, "tests", "test_torch_parallel.py"),
              os.path.join(ROOT, "tests", "test_torch_multihost.py"),

@@ -23,6 +23,12 @@ all-identity terms, one finite lane and equal terms.  The round as one
 call (parallel/prove_sharded.py) runs on the card and on the CPU from one
 setup, tabled and tableless, at M = 4 rows of 16 points (msm_naive's
 ladder) and M = 1 row of 128 (the tableless msm), with equal outputs.
+The open's quotient (fr_quotient, four launches a call) equals its plain
+twin run on the card in y, q and the flag: one row at T = 2^19, four rows
+at 2^18 (prove_sharded's batch), T = 2^4 and 2^8, alpha on the domain,
+alpha 0, rows of zeros and lanes at r - 1; a workerOpen at a domain point
+takes the coefficient-basis fallback and answers as the CPU backend of the
+same secrets does.
 Every wrapper launches on cuda:1 from a thread whose current device is
 cuda:0 (two cards or more), four threads launching at once keep the
 launch count exact, and the BGMW MSM over the in-process shards of
@@ -36,6 +42,7 @@ import pytest
 import torch
 
 from fourier_tpu_torch.constants import FR_LIMBS, R
+from fourier_tpu_torch.utils.trace import TRACER
 from fourier_tpu_torch.ops.limbs import ints_to_vec
 from fourier_tpu_torch.refimpl.curve import G1_GEN, g1_add, g1_msm, g1_mul, g1_neg
 from fourier_tpu_torch.ops import curve as tcv
@@ -392,9 +399,87 @@ def test_round_on_card_matches_cpu(cuda_device, n, m):
 
 
 
+QUOTIENT_KERNELS = ("fr_quotient_inv", "fr_quotient_sum", "fr_quotient_eval",
+                    "fr_quotient_qhat")
+R_MINUS_1 = torch.as_tensor(ints_to_vec([R - 1], FR_LIMBS).astype("int64"))
+
+
+def _fr_rand(shape, gen):
+    """Canonical random Fr limbs [16, *shape] (top limb below r's)."""
+    x = torch.randint(0, 1 << 16, (FR_LIMBS,) + shape, generator=gen, dtype=torch.int64)
+    x[FR_LIMBS - 1] = torch.randint(0, 0x73ED, shape, generator=gen, dtype=torch.int64)
+    return x
+
+
+def _quotient_case(kind, log_t, batch, dev):
+    """(roots, f, alpha, t_inv) of random canonical values on dev."""
+    gen = torch.Generator().manual_seed(log_t * 31 + len(batch))
+    T = 1 << log_t
+    roots, f = _fr_rand((T,), gen), _fr_rand(batch + (T,), gen)
+    alpha, t_inv = _fr_rand((1,), gen), _fr_rand((1,), gen)
+    if kind == "alpha on the domain":
+        alpha = roots[:, T // 3:T // 3 + 1].clone()
+    elif kind == "alpha 0":
+        alpha.zero_()
+    elif kind == "f zeros":
+        f.zero_()
+    elif kind == "f at r - 1":
+        f[..., ::2] = R_MINUS_1.view((FR_LIMBS,) + (1,) * (f.ndim - 1))
+    return [t.to(dev) for t in (roots, f, alpha, t_inv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,log_t,batch", [
+    ("random", 19, ()), ("random", 18, (4,)), ("random", 4, ()), ("random", 8, ()),
+    ("alpha on the domain", 8, ()), ("alpha on the domain", 18, (4,)), ("alpha 0", 8, ()),
+    ("f zeros", 8, (2,)), ("f at r - 1", 8, ()), ("f at r - 1", 4, (2, 3)),
+])
+def test_fr_quotient_matches_plain_twin(cuda_device, kind, log_t, batch):
+    """y, q and the flag of the four launches equal the plain twin's on the
+    card; one launch of each kernel a call, and no other."""
+    args = _quotient_case(kind, log_t, batch, cuda_device)
+    before = dict(kernels.COUNTERS.launches)
+    got = kernels.fr_quotient(*args)
+    launched = {k: v - before[k] for k, v in kernels.COUNTERS.launches.items() if v > before[k]}
+    want = kernels.fr_quotient_plain(*args)
+    assert launched == dict.fromkeys(QUOTIENT_KERNELS, 1)
+    assert got[2] is want[2] is (kind == "alpha on the domain")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_open_at_a_domain_point_takes_the_fallback(cuda_device):
+    """A workerOpen at alpha = w^3 sets the quotient's flag on the card,
+    runs the coefficient-basis fallback and answers as the CPU backend of
+    the same secrets; an open off the domain does too, without it."""
+    from fourier_tpu_torch.models.piano import (PianoBackend, PianoFFTSettings,
+                                                generate_trusted_setup)
+
+    secrets = (bytes(range(32)), bytes(range(32, 64)))
+    backends = []
+    for dev in ("cpu", "cuda"):
+        fft = PianoFFTSettings(5, 1, dev)
+        backends.append(PianoBackend(fft, generate_trusted_setup(fft, secrets), dev, [dev]))
+    cpu, card = backends
+    rng = random.Random(0xFA11)
+    row = [rng.randrange(R) for _ in range(card.fft.T)]
+    for alpha, fallback in ((card.fft.left_roots[3], True), (rng.randrange(R), False)):
+        TRACER.enable()
+        try:
+            got = card.worker_open(1, row, alpha)
+        finally:
+            TRACER.disable()
+        spans = {s["name"]: s for s in TRACER.drain()}
+        assert ("open.fallback" in spans) is fallback
+        assert spans["open.quotient"]["launches"] == len(QUOTIENT_KERNELS)
+        assert got == cpu.worker_open(1, row, alpha)
+        assert card.worker_verify(1, card.worker_commit(1, row), alpha, *got)
+
+
 def _every_wrapper(dev):
-    """Each of the seven wrappers on tensors of dev, their results moved
-    to the CPU, beside the plain twins' (K1 on a BGMW MSM's runs)."""
+    """Each of the eight wrappers on tensors of dev, their results moved
+    to the CPU, beside the plain twins' (K1 on a BGMW MSM's runs; the
+    quotient's y and q)."""
     ps, qs = _lanes(40)
     tp = tcv.from_affine(tcv.affine_from_ints(ps))
     tq_aff = tcv.affine_from_ints(qs)
@@ -418,8 +503,11 @@ def _every_wrapper(dev):
         (kernels.g1_madd_ladder(q_aff, sc.to(dev), 64),
          kernels.g1_madd_ladder_plain(tq_aff, sc, 64)),
     ]
+    qargs = _quotient_case("random", 6, (2,), torch.device("cpu"))
+    pairs.append((kernels.fr_quotient(*(t.to(dev) for t in qargs))[:2],
+                  kernels.fr_quotient_plain(*qargs)[:2]))
     torch.cuda.synchronize(dev)
-    return [(tcv.G1Jac(*(c.cpu() for c in got)), want) for got, want in pairs]
+    return [(tuple(c.cpu() for c in got), want) for got, want in pairs]
 
 
 @pytest.mark.cuda
@@ -431,11 +519,15 @@ def test_wrappers_launch_on_another_card_from_any_thread(cuda_device):
     import threading
 
     out, errors = [], []
+    before = dict(kernels.COUNTERS.launches)
+    launched = {}
 
     def body():
         try:
             torch.cuda.set_device(0)
             out.extend(_every_wrapper(torch.device("cuda", 1)))
+            launched.update((k, v - before[k]) for k, v in kernels.COUNTERS.launches.items()
+                            if v > before[k])
             assert torch.cuda.current_device() == 0
         except BaseException as e:              # read below
             errors.append(e)
@@ -444,7 +536,7 @@ def test_wrappers_launch_on_another_card_from_any_thread(cuda_device):
     th.start()
     th.join(600)
     assert not th.is_alive() and not errors, errors
-    assert len(out) == len(kernels.KERNELS)
+    assert set(launched) == set(kernels.KERNELS), launched
     for got, want in out:
         for a, b in zip(got, want):
             assert torch.equal(a, b)

@@ -30,8 +30,10 @@ writes to --out:
 - from the profiled window: busy and window seconds, the device's idle
   time by the innermost program span of either process at each instant,
   the device kernels (and copies) that start inside each open.quotient
-  span, how many K1 kernels (accumulate) start inside a program msm span,
-  and for each commit where its K1 kernels start in its msm span.
+  span, the names of the most frequent of them, the hand-written kernels
+  each span counts (`launches`), how many K1 kernels (accumulate) start
+  inside a program msm span, and for each commit where its K1 kernels
+  start in its msm span.
 
 --device cpu and --scale run it here at a small size (no profiler).
 """
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import collections
 import json
 import os
 import statistics
@@ -122,6 +125,9 @@ class Profile:
             "idle_gaps": attribute(gaps, spans),
             "quotient_kernels": [len(inside(s, is_kernel)) for s in quot],
             "quotient_copies": [len(inside(s, lambda w: not is_kernel(w))) for s in quot],
+            "quotient_kernel_names": dict(collections.Counter(
+                w[2][:60] for s in quot for w in inside(s, is_kernel)).most_common(12)),
+            "quotient_launches": [s.get("launches") for s in quot],
             "k1_events": len(k1), "k1_in_msm_spans": sum(len(inside(s, is_k1)) for s in msms),
             "commits": commits,
         }
