@@ -1,0 +1,9 @@
+"""commit_host_ms.inproc: commit_host_ms
+(kzgbench/metrics/commit_host_ms.py) in the in-process cell, which
+reports no commit or open latency end to end (their runs spread wider
+than the largest bound): there it moves rows_per_s."""
+
+from kzgbench import spec
+
+_OF = spec.module("metrics", "commit_host_ms")
+SPANS, read = _OF.SPANS, _OF.read

@@ -9,8 +9,9 @@ the seed, warms up every request of the mix, measures for --seconds,
 compares every answer with the plain reference, and prints one JSON line
 last on standard output: with --trace 0 the cell's end-to-end metrics,
 with --trace 1 its per-layer metrics from spans and the device trace.
-Without as many CUDA cards as the cell asks for, it exits 2 and prints no
-result.  --fault breaks the timed path (the control and the tests only).
+The result's `device` names the CPUs the run may use.  Without as many
+CUDA cards as the cell asks for, it exits 2 and prints no result.
+--fault breaks the timed path (the control and the tests only).
 """
 
 import argparse
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
     except harness.RunError as e:
         print(f"kzgbench: {e}", file=sys.stderr)
         return 1
+    result["device"]["cpus"] = sorted(os.sched_getaffinity(0))
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr)
     print(json.dumps(result), flush=True)

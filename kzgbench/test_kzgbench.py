@@ -1,9 +1,11 @@
 """CPU tests of the benchmark harness (python -m pytest kzgbench/): every cell
 resolves its files, every traffic mix runs end to end at a small scale and
 agrees with the reference, each fault of the timed path makes `correct`
-false, the yardstick's pieces agree with the port's own, and nothing here
-imports JAX or the JAX package.  The test marked `cuda` runs one cell on a
-card and skips elsewhere."""
+false, a worker's MSM over four shards runs through the harness, the
+yardstick's pieces agree with the port's own, and nothing here imports
+JAX or the JAX package.  A cell's small size and window follow from its
+configuration and mix, so a new configuration or cell is new files.  The test marked
+`cuda` runs one cell on a card and skips elsewhere."""
 
 from __future__ import annotations
 
@@ -26,18 +28,25 @@ sys.path.insert(0, os.path.dirname(HERE))
 from kzgbench import data, faults, harness, reference, roofline, spec, trace  # noqa: E402
 
 SEED = 2**31 + 977
-# small deployments of each configuration, where the rows still have tables
-SMALL = {"piano-s20-m1": {"scale": 8}, "piano-s20-m2": {"scale": 9}}
 CELLS = [w["name"] for w in spec.Spec().bench["workloads"]]
 
 
 def small(cell: str) -> dict:
-    return SMALL[spec.Spec().cell(cell)["config"]]
+    """The cell's configuration at T = 2^7 values a row, where the rows
+    still have tables, whatever its workers and cards."""
+    sp = spec.Spec()
+    return {"scale": 7 + sp.config(sp.cell(cell))["machines_scale"]}
 
 
-def run_small(cell, trace_=False, fault=None, seconds=3.0):
-    return harness.run_cell(cell, SEED, seconds, trace_, device="cpu", overrides=small(cell),
-                            fault=fault)
+def window_s(cell: str) -> float:
+    """A window that completes a step of the cell's mix on the CPU."""
+    sp = spec.Spec()
+    return 45.0 if sp.traffic(sp.cell(cell))["unit"] == "round" else 3.0
+
+
+def run_small(cell, trace_=False, fault=None, overrides=None):
+    return harness.run_cell(cell, SEED, window_s(cell), trace_, device="cpu",
+                            overrides={**small(cell), **(overrides or {})}, fault=fault)
 
 
 def test_cells_resolve():
@@ -61,15 +70,31 @@ def test_cells_resolve():
             assert m["moves"] in e2e
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(spec.reader(m["name"]))
-    for target in spec.trace_needs(bench["per_layer"])["spans"]:
-        assert callable(getattr(*trace.resolve(target)))
         for w in m.get("workloads", []):
             sp.cell(w)
+    for target in spec.trace_needs(bench["per_layer"])["spans"]:
+        assert callable(getattr(*trace.resolve(target)))
 
+
+
+def _split_metrics() -> list[str]:
+    names = {m["name"] for m in spec.Spec().bench["per_layer"]}
+    return sorted(n for n in names if "." in n and
+                  os.path.exists(os.path.join(HERE, "metrics", n.rsplit(".", 1)[0] + ".py")))
+
+
+@pytest.mark.parametrize("name", _split_metrics())
+def test_a_split_metric_reads_as_its_base(name):
+    """A metric split by cell (`<base>.<suffix>`, moving another end-to-end
+    metric there) reads and traces exactly what its base does."""
+    of, base = spec.module("metrics", name), spec.module("metrics", name.rsplit(".", 1)[0])
+    assert of.read is base.read
+    for key in ("SPANS", "KERNELS"):
+        assert getattr(of, key, None) == getattr(base, key, None)
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traffic_end_to_end(cell, capsys):
-    out = run_small(cell, seconds=45.0 if "round" in cell else 3.0)
+    out = run_small(cell)
     assert set(out) >= {"correct", "attempted", "failed", "metrics", "device", "checks"}
     assert list(out)[-1] == "checks"
     assert out["correct"], out["checks"]
@@ -81,21 +106,29 @@ def test_traffic_end_to_end(cell, capsys):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reports_spans(cell):
-    out = run_small(cell, trace_=True, seconds=45.0 if "round" in cell else 3.0)
+    """Every metric that the cell reads from spans is there on the CPU (the
+    device trace's are not)."""
+    out = run_small(cell, trace_=True)
     assert out["correct"]
-    names = set(out["metrics"])
-    assert {"msm_ms", "quotient_ms", "commit_host_ms", "srs_s", "tables_s"} <= names
-    if "http" in cell:
-        assert "wire_ms.commit" in names
-    if "round" in cell:
-        assert "fft_ms" in names
+    sp = spec.Spec()
+    spanned = {m["name"] for m in sp.per_layer(sp.cell(cell)) if m["source"] == "program_span"}
+    assert spanned <= set(out["metrics"])
 
 
 @pytest.mark.parametrize("fault", faults.FAULTS)
 @pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_caught(cell, fault):
-    out = run_small(cell, fault=fault, seconds=45.0 if "round" in cell else 3.0)
+    out = run_small(cell, fault=fault)
     assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("fault", [None, "control"])
+@pytest.mark.parametrize("cell", ["s20m1.worker.inproc", "s20m1.worker.http"])
+def test_four_shards(cell, fault):
+    """A worker's MSM over four shards, as a four-card cell runs it: correct,
+    and the control is caught."""
+    out = run_small(cell, fault=fault, overrides={"cards": 4})
+    assert out["correct"] == (fault is None), out["checks"]
 
 
 def test_reference_agrees_with_the_port():

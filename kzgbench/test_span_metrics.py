@@ -1,7 +1,7 @@
 """CPU tests of the per-layer metrics that read the boundaries the port
 marks as its `commit.upload` and `server.request` spans: a traced run of
-each worker cell reports them, and the server's share of a commit pairs
-each commit with the HTTP request that holds it."""
+each cell that lists the upload's metric reports them, and the server's
+share of a commit pairs each commit with the HTTP request that holds it."""
 
 from __future__ import annotations
 
@@ -14,19 +14,34 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 from kzgbench import harness, spec  # noqa: E402
+from kzgbench.test_kzgbench import small, window_s  # noqa: E402
 
 SEED = 2**31 + 1013
 
 
-@pytest.mark.parametrize("cell", ["s20m1.worker.http", "s20m1.worker.inproc"])
+def reading(cell: dict, metric: str) -> str | None:
+    """The name under which the cell reads `metric`: itself, or the
+    metric split by cell (`<metric>.<suffix>`)."""
+    names = {m["name"] for m in spec.Spec().per_layer(cell)}
+    return next((n for n in sorted(names) if n == metric or n.startswith(metric + ".")), None)
+
+
+def cells_reading(metric: str) -> list[str]:
+    return [w["name"] for w in spec.Spec().bench["workloads"] if reading(w, metric)]
+
+
+@pytest.mark.parametrize("cell", cells_reading("upload_ms.commit"))
 def test_traced_run_reports_the_new_metrics(cell):
-    out = harness.run_cell(cell, SEED, 3.0, True, device="cpu", overrides={"scale": 8})
+    out = harness.run_cell(cell, SEED, window_s(cell), True, device="cpu",
+                           overrides=small(cell))
     assert out["correct"]
     names = set(out["metrics"])
-    assert "upload_ms.commit" in names
-    assert ("server_codec_ms.commit" in names) == ("http" in cell)
-    assert all(out["metrics"][n]["value"] > 0 for n in names & {"upload_ms.commit",
-                                                                "server_codec_ms.commit"})
+    sp = spec.Spec()
+    upload = reading(sp.cell(cell), "upload_ms.commit")
+    assert upload in names
+    http = sp.traffic(sp.cell(cell))["transport"] == "http"
+    assert ("server_codec_ms.commit" in names) == http
+    assert all(out["metrics"][n]["value"] > 0 for n in names & {upload, "server_codec_ms.commit"})
 
 
 def _span(name, parent, t0, t1):
